@@ -2,17 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA decision kernels from `src/repro_torch/kernels/etf_ft/
-csrc/etf_ft.cu` into `build/repro_torch/`, holds each kernel to its plain
-PyTorch version on the card, drives the port's main path (the summary40
-pipeline at the benchmark's full size: 40 mixes x 14 rates, 60 frames per
-workload, 19 PEs) through the kernels, checks its outcome against
-`benchmarks/BENCH_sweep.json`, and checks the card's schedules against the
-CPU's. Each phase prints one line with its result and seconds; any failure
-raises and the exit code is not 0. The last line of standard output is
-`{"ok": true, "device": {...}}`; the line before it lists each kernel with
-its launches on the main path, its error against the plain version, its
-time per call, the plain version's time and its bound.
+Builds the CUDA kernels from `src/repro_torch/kernels/*/csrc/*.cu` into
+`build/repro_torch/` (one nvcc per source, all at once), holds each
+kernel to its plain PyTorch version on the card, and drives the port's
+two paths through them:
+
+  * the DAS scheduling pipeline (summary40 at the benchmark's full size:
+    40 mixes x 14 rates, 60 frames per workload, 19 PEs), checked against
+    `benchmarks/BENCH_sweep.json`, and the card's schedules against the
+    CPU's;
+  * RecurrentGemma-9B inference at full width and depth (38 layers,
+    d_model 4096, vocab 256,000, random weights from a seed): scoring
+    4096 tokens, then serving 4 prompts of 4096 tokens with 32 greedy
+    decode steps, the served logits checked against scoring; and the
+    model cut to one period (3 layers) in fp32, card against CPU.
+
+Each phase prints its result and seconds; any failure raises and the
+exit code is not 0. The last line of standard output is `{"ok": true,
+"device": {...}}`; the line before it lists each kernel with its
+launches on its path, its error against the plain version, its time per
+call, the plain version's, the bound and the library call's time.
 """
 from __future__ import annotations
 
@@ -28,9 +37,17 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM peaks from NVIDIA's data sheet (dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 MAIN_S = 560            # scenarios in one oracle sweep (40 mixes x 14 rates)
 TOL_DERIVED = 1e-3      # the four ratios against BENCH_sweep.json
 TOL_AGG = 1e-6          # card vs CPU float aggregates (reduction order)
+# flash attention against its plain version: both fp32 inside, summed in
+# another order; a bf16 output rounds to 2^-8 relative
+TOL_FLASH = {"float32": 1e-4, "bfloat16": 2e-2}
+# served logits (bf16, 38 layers) against scoring the same tokens: the
+# JAX package's ring-cache tolerance (tests/test_lm_details.py)
+TOL_SERVE = 5e-2
+TOL_CROSS_F32 = 1e-4    # 3-layer fp32 model, card vs CPU, relative
 
 
 def log(msg: str) -> None:
@@ -59,13 +76,27 @@ def phase_device():
 # ---------------------------------------------------------------------------
 # phase 2: build
 # ---------------------------------------------------------------------------
-def phase_build() -> float:
-    from repro_torch.kernels.etf_ft import kernel
+def libraries():
+    from repro_torch.kernels.etf_ft import kernel as etf
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rg_lru import kernel as rg
+    return (etf.LIBRARY, fa.LIBRARY, rg.LIBRARY)
+
+
+def phase_build() -> dict:
+    """One nvcc per source, all started together, then load each."""
+    from concurrent.futures import ThreadPoolExecutor
+    libs = libraries()
     t0 = time.perf_counter()
-    path, secs = kernel.build()
-    kernel._lib()
-    log(f"[2 build] {path.relative_to(ROOT)} nvcc {secs:.2f}s "
-        f"(phase {time.perf_counter() - t0:.2f}s)")
+    with ThreadPoolExecutor(len(libs)) as pool:
+        built = [f.result() for f in [pool.submit(lib.build)
+                                      for lib in libs]]
+    for lib in libs:
+        lib.load()
+    secs = {lib.name: s for lib, (_, s) in zip(libs, built)}
+    for lib, (path, s) in zip(libs, built):
+        log(f"[2 build] {path.relative_to(ROOT)} nvcc {s:.2f}s")
+    log(f"[2 build] phase {time.perf_counter() - t0:.2f}s")
     return secs
 
 
@@ -83,7 +114,8 @@ def _bits_equal(a, b) -> bool:
             return False
         a = torch.where(na, 0.0, a)
         b = torch.where(nb, 0.0, b)
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+        bits = {4: torch.int32, 2: torch.int16}[a.element_size()]
+        return torch.equal(a.view(bits), b.view(bits))
     return torch.equal(a, b)
 
 
@@ -189,9 +221,10 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
+def _bound_ms(nbytes: int, ops: int,
+              ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / F32_OPS_PER_S * 1e3
+    to = ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -283,8 +316,138 @@ def phase_kernels() -> dict:
     return {"err": err, "timing": timing}
 
 
+
+# flash attention cases: B, S, H, K, Dh, window, softcap, dtype
+FLASH_MAIN = (1, 4096, 16, 1, 256, 2048, 0.0, "bfloat16")  # RG-9B local
+FLASH_CASES = (
+    FLASH_MAIN,
+    (1, 4096, 16, 1, 256, 2048, 0.0, "float32"),  # f32 at the main shape
+    (1, 4095, 16, 1, 256, 2048, 0.0, "bfloat16"),  # S not a tile multiple
+    (1, 512, 4, 4, 64, 0, 0.0, "float32"),         # MHA, full causal
+    (2, 512, 8, 2, 128, 0, 0.0, "bfloat16"),       # GQA
+    (1, 1024, 8, 1, 256, 256, 0.0, "float32"),     # MQA, short window
+    (1, 512, 4, 2, 64, 0, 30.0, "float32"),        # tanh softcap
+    (1, 300, 4, 2, 96, 64, 50.0, "bfloat16"),      # Dh 96, softcap, window
+    (2, 33, 2, 1, 16, 0, 0.0, "float32"),          # Dh 16, one ragged tile
+    (1, 1, 2, 2, 32, 0, 0.0, "float32"),           # S = 1
+)
+# RG-LRU cases: B, S, C, dtype
+RG_MAIN = (1, 4096, 4096, "float32")       # RG-9B forward, one sequence
+RG_CASES = (RG_MAIN, (2, 1000, 512, "bfloat16"), (3, 257, 999, "float32"),
+            (1, 37, 33, "float32"), (2, 1, 64, "bfloat16"))
+
+
+def _flash_inputs(case, seed):
+    import torch
+    B, S, H, K, D, _, _, dt = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn((B, S, n, D), generator=g, device="cuda")
+            .to(getattr(torch, dt)) for n in (H, K, K)]
+
+
+def _rg_inputs(case, seed):
+    import torch
+    B, S, C, dt = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.rand((B, S, C), generator=g, device="cuda") * 0.2 + 0.8
+    b = torch.randn((B, S, C), generator=g, device="cuda") * 0.1
+    return a.to(getattr(torch, dt)), b.to(getattr(torch, dt))
+
+
+def phase_lm_kernels() -> dict:
+    """Flash attention and the RG-LRU scan against their plain versions
+    on the card, then each timed at the RecurrentGemma-9B path's shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as far
+    from repro_torch.kernels.rg_lru import kernel as rg, ref as rgr
+    t0 = time.perf_counter()
+    err = {"flash_attention": 0.0, "rg_lru": 0.0}
+    for i, case in enumerate(FLASH_CASES):
+        _, _, _, _, _, W, cap, dt = case
+        q, k, v = _flash_inputs(case, 100 + i)
+        got = fa.flash_attention_fwd(q, k, v, causal=True, window=W,
+                                     softcap=cap)
+        want = far.mha_reference(q, k, v, causal=True, window=W,
+                                 softcap=cap)
+        torch.cuda.synchronize()
+        e = _max_abs_err(got.float(), want.float())
+        if got.dtype != want.dtype or not bool(torch.isfinite(got).all()) \
+                or e > TOL_FLASH[dt]:
+            raise AssertionError(f"flash_attention {case}: max abs err {e}"
+                                 f" > {TOL_FLASH[dt]}")
+        err["flash_attention"] = max(err["flash_attention"], e)
+        log(f"[3 kernels] flash_attention {case}: max abs err {e:.3e}")
+        del q, k, v, got, want
+    for i, case in enumerate(RG_CASES):
+        a, b = _rg_inputs(case, 200 + i)
+        got = rg.rg_lru_fwd(a, b)
+        want = rgr.rg_lru_reference(a, b)
+        torch.cuda.synchronize()
+        if not _bits_equal(got, want):
+            raise AssertionError(f"rg_lru {case}: kernel != plain "
+                                 f"(max abs err {_max_abs_err(got, want)})")
+        log(f"[3 kernels] rg_lru {case}: bit-equal to plain")
+
+    timing = {}
+    B, S, H, K, D, W, cap, dt = FLASH_MAIN
+    q, k, v = _flash_inputs(FLASH_MAIN, 1)
+    ok = far.band_mask(S, True, W, q.device)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok,
+                                         enable_gqa=True).transpose(1, 2)
+    lib_err = _max_abs_err(lib.float(), far.mha_reference(
+        q, k, v, causal=True, window=W).float())
+    pairs = int(ok.sum())
+    nbytes = _nbytes(q, k, v, q)
+    bound, by = _bound_ms(nbytes, 4 * D * pairs * B * H, BF16_OPS_PER_S)
+    timing["flash_attention"] = {
+        "ms": _device_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, causal=True, window=W), iters=20),
+        "plain_ms": _device_ms(lambda: far.mha_reference(
+            q, k, v, causal=True, window=W), iters=5),
+        "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=ok, enable_gqa=True), iters=20),
+        "call_ms": _call_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, causal=True, window=W), iters=20),
+        "bound_ms": bound, "bound_by": by,
+        "shape": f"q [{B},{S},{H},{D}] k/v [{B},{S},{K},{D}] {dt} W={W}",
+        "flop": 4 * D * pairs * B * H, "bytes": nbytes,
+        "library_err": lib_err}
+    del q, k, v, qt, kt, vt, lib, ok
+    B, S, C, dt = RG_MAIN
+    a, b = _rg_inputs(RG_MAIN, 2)
+    nbytes = _nbytes(a, b, a)
+    bound, by = _bound_ms(nbytes, 2 * B * S * C)
+    timing["rg_lru"] = {
+        "ms": _device_ms(lambda: rg.rg_lru_fwd(a, b), iters=50),
+        "plain_ms": _device_ms(lambda: rgr.rg_lru_reference(a, b), iters=1),
+        "library_ms": None,
+        "call_ms": _call_ms(lambda: rg.rg_lru_fwd(a, b), iters=50),
+        "bound_ms": bound, "bound_by": by,
+        "shape": f"a/b [{B},{S},{C}] {dt}", "flop": 2 * B * S * C,
+        "bytes": nbytes}
+    del a, b
+    for name, t in timing.items():
+        lib_ms = ("none" if t["library_ms"] is None
+                  else f"{t['library_ms'] * 1e3:.1f} us")
+        log(f"[3 kernels] {name} at {t['shape']}: device "
+            f"{t['ms'] * 1e3:.1f} us/call (plain {t['plain_ms'] * 1e3:.1f} "
+            f"us, library {lib_ms}), per call incl. launch "
+            f"{t['call_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.1f} "
+            f"us ({t['bound_by']}: {t['flop']:.3e} FLOP, "
+            f"{t['bytes'] / 1e6:.1f} MB); {t['bound_ms'] / t['ms']:.1%} of "
+            "the bound")
+    log(f"[3 kernels] sdpa yardstick max abs err vs plain "
+        f"{timing['flash_attention']['library_err']:.3e}; "
+        f"{len(FLASH_CASES)} flash cases within tolerance, {len(RG_CASES)} "
+        f"rg_lru cases bit-equal ({time.perf_counter() - t0:.1f}s)")
+    torch.cuda.empty_cache()
+    return {"err": err, "timing": timing}
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path at full size
+# phase 4: the DAS pipeline at full size
 # ---------------------------------------------------------------------------
 def phase_main() -> dict:
     import torch
@@ -304,12 +467,12 @@ def phase_main() -> dict:
     for sw in out["sweeps"]:
         if sw["stalled"] or sw["unfinished"] or sw["ready_drop"]:
             raise AssertionError(f"unhealthy sweep: {sw}")
-        log(f"[4 main] sweep {sw['label']}: {sw['scenarios']} scenarios, "
+        log(f"[4 das] sweep {sw['label']}: {sw['scenarios']} scenarios, "
             f"{sw['wall_s']:.2f}s, {sw['steps']} super-steps, "
             f"{sw['events']} events, "
             f"{sw['wall_s'] * 1e3 / max(sw['steps'], 1):.3f} ms/step")
     for k in summary40.DERIVED:
-        log(f"[4 main] {k}: port {out[k]!r} reference {ref[k]!r} "
+        log(f"[4 das] {k}: port {out[k]!r} reference {ref[k]!r} "
             f"diff {out[k] - ref[k]:+.3e}")
     if out["das_matches_best_frac"] != ref["das_matches_best_frac"]:
         raise AssertionError("das_matches_best_frac differs")
@@ -318,7 +481,7 @@ def phase_main() -> dict:
             raise AssertionError(f"{k}: {out[k]} vs {ref[k]}")
     steps = sum(sw["steps"] for sw in out["sweeps"])
     sweep_s = sum(sw["wall_s"] for sw in out["sweeps"])
-    log(f"[4 main] oracle samples {out['n_samples']} (reference 420168); "
+    log(f"[4 das] oracle samples {out['n_samples']} (reference 420168); "
         f"{out['n_cells']} cells; launches {launches}; "
         f"{steps} super-steps in {sweep_s:.2f}s of sweeps = "
         f"{sweep_s * 1e3 / steps:.3f} ms/step; pipeline {wall:.1f}s")
@@ -326,7 +489,7 @@ def phase_main() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the card against the CPU, per scenario
+# phase 5: the DAS engine, card against CPU, per scenario
 # ---------------------------------------------------------------------------
 EXACT_FIELDS = ("n_done", "pe_of", "finish", "log_feat", "log_policy",
                 "log_agree", "log_task", "n_fast", "n_slow", "n_iters",
@@ -365,15 +528,117 @@ def phase_cross(trees: dict) -> None:
             if (rel > TOL_AGG).any():
                 raise AssertionError(f"{sim.MODE_NAMES[mode]} {f}: rel "
                                      f"{rel.max():.2e} > {TOL_AGG}")
-    log(f"[5 cross] {len(cells)} cells x LUT/ETF/DAS at 60 instances: "
+    log(f"[5 das-cross] {len(cells)} cells x LUT/ETF/DAS at 60 instances: "
         f"schedules bit-equal card vs CPU, float aggregates within "
         f"{worst:.2e} relative ({time.perf_counter() - t0:.1f}s)")
 
 
-KERNELS = (
-    ("etf_ft_search_masked", "src/repro/kernels/etf_ft/kernel.py:122"),
-    ("etf_ft_search", "src/repro/kernels/etf_ft/kernel.py:72"),
-    ("push_rows", "src/repro/kernels/etf_ft/kernel.py:181"),
+# ---------------------------------------------------------------------------
+# phase 6: RecurrentGemma-9B inference at full width and depth
+# ---------------------------------------------------------------------------
+EXPECTED_LAUNCHES = {  # per call, at 38 layers: 12 local, 26 rglru
+    "forward_launches": {"flash_attention": 12, "rg_lru": 26},
+    "prefill_launches": {"flash_attention": 12, "rg_lru": 0},
+    "decode_launches": {"flash_attention": 0, "rg_lru": 0},
+}
+
+
+def phase_lm() -> dict:
+    import torch
+    from repro_torch.bench import lm_serve
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rg_lru import ops as rg_ops
+    t0 = time.perf_counter()
+    fa_ops.reset_launches()
+    rg_ops.reset_launches()
+    out = lm_serve.run(device="cuda")
+    torch.cuda.synchronize()
+    launches = {**fa_ops.LAUNCHES, **rg_ops.LAUNCHES}
+    wall = time.perf_counter() - t0
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"the LM path never launched {name}")
+    for key, want in EXPECTED_LAUNCHES.items():
+        if out[key] != want:
+            raise AssertionError(f"{key}: {out[key]}, expected {want}")
+    if not (out["forward_finite"] and out["serve_finite"]):
+        raise AssertionError("non-finite logits")
+    chk = out["check"]
+    log(f"[6 lm] {out['arch']} {out['n_layers']} layers, d_model "
+        f"{out['d_model']}, vocab {out['vocab']}, {out['params']:,} params "
+        f"(fp32 at rest, {out['dtype']} compute), built from a seed in "
+        f"{out['build_s']:.2f}s")
+    log(f"[6 lm] forward 1 x {out['score_len']} tokens: "
+        f"{out['forward_s']:.3f}s, "
+        f"{out['score_tok_per_s']:.0f} tok/s, launches "
+        f"{out['forward_launches']}")
+    log(f"[6 lm] prefill {out['batch']} x {out['prompt_len']} tokens: "
+        f"{out['prefill_s']:.3f}s, "
+        f"{out['prefill_tok_per_s']:.0f} tok/s, launches "
+        f"{out['prefill_launches']}")
+    log(f"[6 lm] decode {out['decode_steps']} steps x {out['batch']} "
+        "sequences: "
+        f"{out['decode_ms_per_step']:.2f} ms/step, "
+        f"{out['decode_tok_per_s']:.1f} tok/s, launches "
+        f"{out['decode_launches']}")
+    log(f"[6 lm] peak memory {out['peak_mem_bytes'] / 2**30:.2f} GiB; "
+        f"served vs scored logits at {chk['positions']} positions: rel "
+        f"max abs {chk['rel_max_abs']:.3e} (tol {TOL_SERVE}), greedy "
+        f"argmax agrees at {chk['argmax_agree']:.1%}; launches in all "
+        f"{launches} ({wall:.1f}s)")
+    if chk["rel_max_abs"] > TOL_SERVE:
+        raise AssertionError(f"served logits off by {chk['rel_max_abs']}")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "out": out}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: one period at full width, fp32, card against CPU
+# ---------------------------------------------------------------------------
+def phase_lm_cross() -> None:
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.bench import lm_serve
+    from repro_torch.models import lm
+    # full fp32 matmuls on the card, as on the CPU (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config("recurrentgemma-9b"),
+                              n_layers=3, dtype="float32")
+    with torch.inference_mode():
+        p = lm_serve.build(cfg, 7, "cuda")
+        g = torch.Generator(device="cuda").manual_seed(8)
+        toks = torch.randint(0, cfg.vocab, (1, 256), generator=g,
+                             device="cuda")
+        card, _, _ = lm.forward(p, cfg, toks)
+        card = card.cpu()
+        p.to("cpu")
+        torch.cuda.empty_cache()
+        cpu, _, _ = lm.forward(p, cfg, toks.cpu())
+    rel = float((card - cpu).abs().max() / cpu.abs().max())
+    agree = float((card.argmax(-1) == cpu.argmax(-1)).float().mean())
+    log(f"[7 lm-cross] 3 layers (rglru, rglru, local) at d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}, fp32, 1 x 256 tokens: card vs "
+        f"CPU rel max abs {rel:.3e} (tol {TOL_CROSS_F32}), argmax agrees at "
+        f"{agree:.1%} ({time.perf_counter() - t0:.1f}s)")
+    if not rel <= TOL_CROSS_F32:
+        raise AssertionError(f"card vs CPU rel {rel}")
+
+
+ETF_SRC = "src/repro_torch/kernels/etf_ft/csrc/etf_ft.cu"
+KERNELS = (  # name, source, TPU kernel replaced, path
+    ("etf_ft_search_masked", ETF_SRC,
+     "src/repro/kernels/etf_ft/kernel.py:122", "das"),
+    ("etf_ft_search", ETF_SRC, "src/repro/kernels/etf_ft/kernel.py:72",
+     "das"),
+    ("push_rows", ETF_SRC, "src/repro/kernels/etf_ft/kernel.py:181", "das"),
+    ("flash_attention",
+     "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention/kernel.py:84", "lm"),
+    ("rg_lru", "src/repro_torch/kernels/rg_lru/csrc/rg_lru.cu",
+     "src/repro/kernels/rg_lru/kernel.py:48", "lm"),
 )
 
 
@@ -382,17 +647,20 @@ def main() -> int:
     phase_device()
     phase_build()
     kern = phase_kernels()
-    main_path = phase_main()
-    phase_cross(main_path["out"]["trees"])
+    lm_kern = phase_lm_kernels()
+    das_path = phase_main()
+    phase_cross(das_path["out"]["trees"])
+    lm_path = phase_lm()
+    phase_lm_cross()
+    checked = {"das": kern, "lm": lm_kern}
+    launched = {"das": das_path["launches"], "lm": lm_path["launches"]}
     rows = []
-    for name, replaces in KERNELS:
-        t = kern["timing"][name]
+    for name, source, replaces, path in KERNELS:
+        t = checked[path]["timing"][name]
         rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/etf_ft/csrc/etf_ft.cu",
-            "replaces": replaces,
-            "launches": main_path["launches"][name],
-            "max_abs_err": kern["err"][name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launched[path][name],
+            "max_abs_err": checked[path]["err"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

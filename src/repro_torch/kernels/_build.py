@@ -1,0 +1,120 @@
+"""Build and binding helpers shared by the port's CUDA kernels.
+
+Each kernel package keeps its source under `csrc/` and describes it as a
+`Library`: the source is compiled at first use with `nvcc` for `sm_90a`
+into a shared library under `build/repro_torch/` at the repository root,
+named by a hash of the source and the flags, so an edit rebuilds and an
+unchanged source is reused. The libraries have a plain C interface:
+pointers go in as `c_void_p`, every kernel runs on the current PyTorch
+stream, and every entry point returns `cudaGetLastError()`, which
+`launch` turns into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+#: flags every library shares; a library may add its own (`-fmad=false`)
+BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3")
+LINK_FLAGS = ("-shared", "-Xcompiler", "-fPIC")
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build on first "
+                       "use and need the CUDA toolkit")
+
+
+class Library:
+    """One CUDA source compiled into one shared library, loaded once.
+
+    `bind(lib)` declares the entry points' `argtypes` and `restype` when
+    the library is first loaded."""
+
+    def __init__(self, name: str, src: Path, flags: tuple, bind):
+        self.name, self.src, self.flags, self._bind = name, src, flags, bind
+        self._cdll = None
+
+    def path(self) -> Path:
+        digest = hashlib.sha256(self.src.read_bytes()
+                                + " ".join(self.flags).encode()).hexdigest()
+        return BUILD_DIR / f"{self.name}-{digest[:16]}.so"
+
+    def build(self) -> tuple[Path, float]:
+        """Compile the library if it is not built yet; returns (path,
+        seconds spent compiling, 0.0 when it was already there)."""
+        out = self.path()
+        if out.exists():
+            return out, 0.0
+        out.parent.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+        os.close(fd)
+        cmd = [nvcc(), *self.flags, "-o", tmp, str(self.src)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+        return out, time.perf_counter() - t0
+
+    def load(self) -> ctypes.CDLL:
+        if self._cdll is None:
+            path, _ = self.build()
+            lib = ctypes.CDLL(str(path))
+            self._bind(lib)
+            self._cdll = lib
+        return self._cdll
+
+
+def check(name: str, t: torch.Tensor, dtype, shape: tuple,
+          device: torch.device) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor on `device` of the
+    given dtype (one dtype or a tuple of them) and shape."""
+    if t.device != device or t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor on {device}, "
+                         f"got {t.device}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: expected {' or '.join(map(str, dtypes))}"
+                         f", got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def ptr(t: torch.Tensor | None):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device: torch.device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def launch(counts: dict, name: str, fn, *args) -> None:
+    """Call a C entry point; raise on its CUDA error code, else count one
+    launch of `name` in `counts`."""
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} "
+                           f"({torch.cuda.get_device_name()})")
+    counts[name] += 1

@@ -1,12 +1,9 @@
 """CUDA decision kernels (`csrc/etf_ft.cu`) and their ctypes wrappers.
 
-The source is compiled at first use with `nvcc` for `sm_90a` into a
-shared library under `build/repro_torch/` at the repository root, named
-by a hash of the source, so an edit rebuilds and an unchanged source is
-reused. The library has a plain C interface: pointers go in as
-`c_void_p`, every kernel runs on the current PyTorch stream, and every
-entry point returns `cudaGetLastError()`, which the wrapper turns into
-an exception.
+The source is built at first use by `kernels/_build.py` (nvcc for
+`sm_90a`, `-fmad=false`, into `build/repro_torch/`, named by a hash of
+the source). Every entry point returns `cudaGetLastError()`, which the
+wrapper turns into an exception.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with `torch.empty`, and adds one to `LAUNCHES[name]` when it
@@ -16,21 +13,16 @@ the plain versions in `ref.py`.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import check as _check, ptr as _ptr
+from repro_torch.kernels._build import stream as _stream
+
 _SRC = Path(__file__).resolve().parent / "csrc" / "etf_ft.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = _build.BASE_FLAGS + ("-fmad=false",) + _build.LINK_FLAGS
 
 #: launches per kernel since the last reset (one per wrapper call that
 #: reached the GPU; the plain versions never count)
@@ -42,47 +34,7 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels build on first "
-                       "use and need the CUDA toolkit")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(_SRC.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD_DIR / f"etf_ft-{digest[:16]}.so"
-
-
-def build() -> tuple[Path, float]:
-    """Compile the library if it is not built yet; returns (path, seconds
-    spent compiling, 0.0 when it was already there)."""
-    out = library_path()
-    if out.exists():
-        return out, 0.0
-    out.parent.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return out, time.perf_counter() - t0
-
-
-@functools.lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
+def _bind(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.etf_ft_search_masked_launch.argtypes = [P] * 10 + [I, I, I, P]
     lib.etf_ft_search_launch.argtypes = [P] * 7 + [I, I, I, P]
@@ -90,37 +42,16 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.etf_ft_search_masked_launch, lib.etf_ft_search_launch,
                lib.push_rows_launch):
         fn.restype = ctypes.c_int
-    return lib
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device) -> None:
-    if t.device != device or t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor on {device}, "
-                         f"got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+LIBRARY = _build.Library("etf_ft", _SRC, NVCC_FLAGS, _bind)
+library_path = LIBRARY.path
+build = LIBRARY.build
+_lib = LIBRARY.load
 
 
 def _launch(name: str, fn, *args) -> None:
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} "
-                           f"({torch.cuda.get_device_name()})")
-    LAUNCHES[name] += 1
-
-
-def _stream(device: torch.device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    _build.launch(LAUNCHES, name, fn, *args)
 
 
 def etf_ft_search_masked(avail, free, exec_t, now, slot_ok, pe_alive=None):

@@ -1,0 +1,69 @@
+"""CUDA flash attention (`csrc/flash_attention.cu`) and its ctypes wrapper.
+
+The source is built at first use by `kernels/_build.py` (nvcc for
+`sm_90a`). The wrapper checks device, dtype, shape and contiguity,
+allocates the output with `torch.empty`, launches on the current stream,
+raises on a nonzero `cudaGetLastError()`, and adds one to
+`LAUNCHES["flash_attention"]`. Nothing here runs on the CPU; `ops.py`
+routes CPU tensors to the plain version in `ref.py`.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+NVCC_FLAGS = _build.BASE_FLAGS + _build.LINK_FLAGS
+MAX_DH = 256
+
+#: launches since the last reset (the plain version never counts)
+LAUNCHES = {"flash_attention": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_attention_launch.argtypes = ([P] * 4 + [I] * 7 + [Fl, Fl]
+                                           + [I, P])
+    lib.flash_attention_launch.restype = ctypes.c_int
+
+
+LIBRARY = _build.Library("flash_attention", _SRC, NVCC_FLAGS, _bind)
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """q [B,S,H,Dh], k/v [B,S,K,Dh] on the GPU, fp32 or bf16, H % K == 0,
+    Dh <= 256, any S >= 1 -> [B,S,H,Dh] in q's dtype, as
+    `ref.mha_reference`."""
+    B, S, H, Dh = q.shape
+    K = k.shape[2]
+    dev = q.device
+    dts = (torch.float32, torch.bfloat16)
+    _build.check("q", q, dts, (B, S, H, Dh), dev)
+    _build.check("k", k, q.dtype, (B, S, K, Dh), dev)
+    _build.check("v", v, q.dtype, (B, S, K, Dh), dev)
+    if K < 1 or H % K:
+        raise ValueError(f"flash_attention: {H} query heads over {K} KV "
+                         "heads")
+    if not 1 <= Dh <= MAX_DH:
+        raise ValueError(f"flash_attention: head dim {Dh} not in "
+                         f"[1, {MAX_DH}]")
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
+    o = torch.empty_like(q)
+    if B * S:
+        _build.launch(
+            LAUNCHES, "flash_attention", LIBRARY.load().flash_attention_launch,
+            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
+            B, S, H, K, Dh, int(bool(causal)), int(window),
+            float(softcap), float(math.sqrt(Dh)),
+            int(q.dtype == torch.bfloat16), _build.stream(dev))
+    return o

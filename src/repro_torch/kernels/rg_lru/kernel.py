@@ -1,0 +1,54 @@
+"""CUDA RG-LRU scan (`csrc/rg_lru.cu`) and its ctypes wrapper.
+
+The source is built at first use by `kernels/_build.py` (nvcc for
+`sm_90a`, `-fmad=false`). The wrapper checks device, dtype, shape and
+contiguity, allocates the output with `torch.empty`, launches on the
+current stream, raises on a nonzero `cudaGetLastError()`, and adds one to
+`LAUNCHES["rg_lru"]`. Nothing here runs on the CPU; `ops.py` routes CPU
+tensors to the plain version in `ref.py`.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "rg_lru.cu"
+NVCC_FLAGS = _build.BASE_FLAGS + ("-fmad=false",) + _build.LINK_FLAGS
+
+#: launches since the last reset (the plain version never counts)
+LAUNCHES = {"rg_lru": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["rg_lru"] = 0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rg_lru_launch.argtypes = [P] * 3 + [I] * 4 + [P]
+    lib.rg_lru_launch.restype = ctypes.c_int
+
+
+LIBRARY = _build.Library("rg_lru", _SRC, NVCC_FLAGS, _bind)
+
+
+def rg_lru_fwd(a, b):
+    """a, b [B, S, C] on the GPU, both fp32 or both bf16 -> h [B, S, C] in
+    a's dtype, h_t = a_t h_{t-1} + b_t from h = 0, bit-equal to
+    `ref.rg_lru_reference`."""
+    B, S, C = a.shape
+    dev = a.device
+    _build.check("a", a, (torch.float32, torch.bfloat16), (B, S, C), dev)
+    _build.check("b", b, a.dtype, (B, S, C), dev)
+    if B > 65535:
+        raise ValueError(f"rg_lru: batch {B} > 65535")
+    y = torch.empty_like(a)
+    if B * S * C:
+        _build.launch(LAUNCHES, "rg_lru", LIBRARY.load().rg_lru_launch,
+                      _build.ptr(a), _build.ptr(b), _build.ptr(y), B, S, C,
+                      int(a.dtype == torch.bfloat16), _build.stream(dev))
+    return y

@@ -1,0 +1,117 @@
+"""RG-LRU recurrent block (Griffin / RecurrentGemma), on the JAX package's
+`models/rglru.py` with the semantics it has under `use_pallas=True`.
+
+y = W_out( RG_LRU(conv1d(W_x x)) * gelu(W_gate x) )
+
+RG-LRU recurrence (per channel):
+    r_t = sigmoid(w_r x_t + b_r)          recurrence gate
+    i_t = sigmoid(w_i x_t + b_i)          input gate
+    a_t = exp(-c * softplus(L) * r_t)     log-space decay, L learnable
+    h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
+
+The stateless path (scoring) runs the recurrence through
+`kernels/rg_lru` (the CUDA kernel on the GPU, its plain version on the
+CPU); a prefill that carries state uses the log-depth scan `_scan`, and
+decode carries h (and the conv window) in `RGLRUState`, as the reference
+does.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.rg_lru import ops as rg_ops
+from repro_torch.models import modules as nn
+
+
+class RGLRUState(NamedTuple):
+    h: torch.Tensor      # [B, R] recurrent state
+    conv: torch.Tensor   # [B, W-1, R] conv window
+
+    @staticmethod
+    def init(batch, d_rnn, conv_width, dtype=torch.float32, device=None):
+        return RGLRUState(
+            torch.zeros((batch, d_rnn), dtype=dtype, device=device),
+            torch.zeros((batch, conv_width - 1, d_rnn), dtype=dtype,
+                        device=device))
+
+
+def rglru_init(generator: torch.Generator, cfg):
+    rc = cfg.rglru
+    d = cfg.d_model
+    r = rc.d_rnn or d
+    dev = generator.device
+    # Lambda init so that a ~ U(0.9, 0.999)^c-ish (Griffin appendix)
+    u = torch.empty(r, device=dev).uniform_(0.9, 0.999, generator=generator)
+    lam = torch.log(torch.expm1(-torch.log(u) / rc.c))  # softplus^-1
+    return {
+        "w_x": nn.dense_init(generator, d, r),
+        "w_gate": nn.dense_init(generator, d, r),
+        "conv": nn.conv1d_init(generator, rc.conv_width, r),
+        "w_r": nn.dense_init(generator, r, r),
+        "b_r": torch.zeros(r, device=dev),
+        "w_i": nn.dense_init(generator, r, r),
+        "b_i": torch.zeros(r, device=dev),
+        "lam": lam,
+        "w_out": nn.dense_init(generator, r, d),
+    }
+
+
+def _gates(p, cfg, u):
+    """u [B,S,R] (post-conv) -> (a, bx) with h_t = a h_{t-1} + bx, fp32."""
+    rc = cfg.rglru
+    r = torch.sigmoid(nn.linear(u, p["w_r"], p["b_r"]).float())
+    i = torch.sigmoid(nn.linear(u, p["w_i"], p["b_i"]).float())
+    log_a = -rc.c * F.softplus(p["lam"].float()) * r
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    bx = beta * (i * u.float())
+    return a, bx
+
+
+def _scan(a, bx, h0=None):
+    """Linear recurrence h_t = a_t h_{t-1} + bx_t along axis 1 (fp32), as a
+    log-depth (Hillis-Steele) scan of the reference's combine
+    (a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2); `h0` folds into step 0."""
+    if h0 is not None:
+        bx = bx.clone()
+        bx[:, 0] = bx[:, 0] + a[:, 0] * h0
+    S = a.shape[1]
+    d = 1
+    while d < S:
+        b_new = bx.clone()
+        b_new[:, d:] = a[:, d:] * bx[:, :-d] + bx[:, d:]
+        a_new = a.clone()
+        a_new[:, d:] = a[:, :-d] * a[:, d:]
+        a, bx = a_new, b_new
+        d *= 2
+    return bx
+
+
+def rglru_apply(p, cfg, x, state: Optional[RGLRUState] = None):
+    """x [B,S,D] -> (y [B,S,D], new_state)."""
+    rc = cfg.rglru
+    gate = F.gelu(nn.linear(x, p["w_gate"]), approximate="tanh")
+    u = nn.linear(x, p["w_x"])
+    if state is None:
+        u = nn.conv1d_apply(p["conv"], u)
+        a, bx = _gates(p, cfg, u)
+        h = rg_ops.rg_lru_scan(a, bx)
+        new_state = None
+    elif x.shape[1] == 1:
+        ut, conv_w = nn.conv1d_step(p["conv"], u[:, 0], state.conv)
+        a, bx = _gates(p, cfg, ut[:, None, :])
+        h = a * state.h[:, None, :].float() + bx
+        new_state = RGLRUState(h[:, -1].to(state.h.dtype), conv_w)
+    else:  # chunked prefill with carry
+        full = torch.cat([state.conv.to(u.dtype), u], dim=1)
+        u = nn.conv1d_apply(p["conv"], full)[:, state.conv.shape[1]:]
+        a, bx = _gates(p, cfg, u)
+        h = _scan(a, bx, h0=state.h.float())
+        new_state = RGLRUState(
+            h[:, -1].to(state.h.dtype),
+            full[:, -(rc.conv_width - 1):, :].to(state.conv.dtype))
+    y = nn.linear(h.to(x.dtype) * gate, p["w_out"])
+    return y, new_state
