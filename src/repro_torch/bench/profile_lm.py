@@ -1,16 +1,19 @@
-"""Where RecurrentGemma inference time goes on the GPU.
+"""Where LM inference time goes on the GPU.
 
-    python -m repro_torch.bench.profile_lm [--decode-steps 8]
+    python -m repro_torch.bench.profile_lm [--arch mamba2-780m]
+        [--score-batch 4] [--decode-steps 8]
 
-Builds the full-width model from a seed (as `lm_serve` does), warms each
-phase up once, then traces with `torch.profiler`: one `forward` of
-[1, 4096] tokens, one `prefill` of [4, 4096] and `--decode-steps` decode
-steps at batch 4. Prints one JSON line per phase: wall and device-busy
-milliseconds, the device's idle share, kernel launches, and device time
-by kernel group (GEMMs, the two hand-written kernels, copies and casts,
-other elementwise and reduction kernels) and by the kernels that take
-most of it. Wall time is taken around the traced region, which ends in
-a synchronize, so it includes the profiler's own cost.
+Builds the full-width model of `--arch` (default recurrentgemma-9b) from
+a seed (as `lm_serve` does), warms each phase up once, then traces with
+`torch.profiler`: one `forward` of [`--score-batch`, 4096] tokens
+(default 1), one `prefill` of [4, 4096] and `--decode-steps` decode
+steps at batch 4.
+Prints one JSON line per phase: wall and device-busy milliseconds, the
+device's idle share, kernel launches, and device time by kernel group
+(GEMMs, each hand-written kernel, copies and casts, other elementwise
+and reduction kernels) and by the kernels that take most of it. Wall
+time is taken around the traced region, which ends in a synchronize, so
+it includes the profiler's own cost.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from repro_torch.models import lm
 GROUPS = (  # first match wins
     ("flash_attention", ("flash_fwd_kernel",)),
     ("rg_lru", ("rg_lru_kernel",)),
+    ("ssd_scan", ("ssd_scan_kernel",)),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("copy_cast", ("copy", "cast", "convert")),
 )
@@ -72,17 +76,19 @@ def _trace(fn, steps: int = 1) -> dict:
 
 
 def run(device="cuda", seed: int = 0, seq: int = 4096, batch: int = 4,
-        decode_steps: int = 8) -> dict:
+        decode_steps: int = 8, arch: str = "recurrentgemma-9b",
+        score_batch: int = 1) -> dict:
     dev = resolve(device)
     if dev.type != "cuda":
         raise RuntimeError("profile_lm measures the GPU; it has no CPU mode")
-    cfg = configs.get_config("recurrentgemma-9b")
+    cfg = configs.get_config(arch)
     out = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name,
-           "dtype": cfg.dtype}
+           "dtype": cfg.dtype, "score_batch": score_batch}
     with torch.inference_mode():
         p = build(cfg, seed, dev)
         g = torch.Generator(device=dev).manual_seed(seed + 1)
-        toks = torch.randint(0, cfg.vocab, (1, seq), generator=g, device=dev)
+        toks = torch.randint(0, cfg.vocab, (score_batch, seq),
+                             generator=g, device=dev)
         prompts = torch.randint(0, cfg.vocab, (batch, seq), generator=g,
                                 device=dev)
         max_len = seq + 2 * decode_steps + 1
@@ -115,12 +121,16 @@ def run(device="cuda", seed: int = 0, seq: int = 4096, batch: int = 4,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--arch", default="recurrentgemma-9b",
+                    choices=configs.ARCH_IDS)
+    ap.add_argument("--score-batch", type=int, default=1)
     ap.add_argument("--decode-steps", type=int, default=8)
     a = ap.parse_args()
-    res = run(a.device, decode_steps=a.decode_steps)
+    res = run(a.device, decode_steps=a.decode_steps, arch=a.arch,
+              score_batch=a.score_batch)
     for phase in ("forward", "prefill", "decode"):
         print(json.dumps({"phase": phase, "device": res["device"],
-                          **res[phase]}))
+                          "arch": res["arch"], **res[phase]}))
 
 
 if __name__ == "__main__":

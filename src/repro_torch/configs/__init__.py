@@ -10,9 +10,10 @@ from typing import Dict, List
 
 from repro_torch.configs.base import ModelConfig, scaled_down  # noqa: F401
 
-ARCH_IDS: List[str] = ["recurrentgemma-9b"]
+ARCH_IDS: List[str] = ["recurrentgemma-9b", "mamba2-780m"]
 
-_MODULES: Dict[str, str] = {"recurrentgemma-9b": "recurrentgemma_9b"}
+_MODULES: Dict[str, str] = {"recurrentgemma-9b": "recurrentgemma_9b",
+                            "mamba2-780m": "mamba2_780m"}
 
 
 def get_config(arch: str) -> ModelConfig:

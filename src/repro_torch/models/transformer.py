@@ -9,9 +9,10 @@ prologue, which runs BEFORE the groups, exactly as in the reference
 (`stack_layout`): at 38 layers of (rglru, rglru, local) the two trailing
 rglru layers of `pattern_full` run first.
 
-Block kinds: "attn", "local" and "rglru". MLA, MoE and SSD blocks raise
-`NotImplementedError`. Sharding constraints and rematerialisation have no
-counterpart in inference.
+Block kinds: "attn", "local", "rglru" and "ssd" (Mamba-2; its block has
+no MLP and no second norm, and returns after the residual add, as in the
+reference). MLA and MoE blocks raise `NotImplementedError`. Sharding
+constraints and rematerialisation have no counterpart in inference.
 """
 from __future__ import annotations
 
@@ -19,10 +20,10 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from repro_torch.models import attention, rglru
+from repro_torch.models import attention, rglru, ssd
 from repro_torch.models import modules as nn
 
-KINDS = ("attn", "local", "rglru")
+KINDS = ("attn", "local", "rglru", "ssd")
 
 
 def _supported(cfg, kind: str) -> None:
@@ -41,8 +42,11 @@ def block_init(generator: torch.Generator, cfg, kind: str, layer_idx: int):
     p: Dict[str, Any] = {"ln1": torch.ones(cfg.d_model, device=dev)}
     if kind in ("attn", "local"):
         p["attn"] = attention.attn_init(generator, cfg)
-    else:
+    elif kind == "rglru":
         p["attn"] = rglru.rglru_init(generator, cfg)
+    else:
+        p["attn"] = ssd.ssd_init(generator, cfg)
+        return p                       # the SSD block has no separate MLP
     p["ln2"] = torch.ones(cfg.d_model, device=dev)
     if cfg.mlp_type != "none":
         p["mlp"] = nn.mlp_init(generator, cfg.d_model, cfg.d_ff,
@@ -62,8 +66,11 @@ def block_apply(p, cfg, kind: str, x, positions, prefix_len=None,
             p["attn"], cfg, h, positions, prefix_len=prefix_len,
             window=window, cache=cache, cache_pos=cache_pos,
             kv_valid=kv_valid)
-    else:
+    elif kind == "rglru":
         y, new_cache = rglru.rglru_apply(p["attn"], cfg, h, state=cache)
+    else:
+        y, new_cache = ssd.ssd_apply(p["attn"], cfg, h, state=cache)
+        return x + y.to(x.dtype), new_cache, 0.0
     x = x + y.to(x.dtype)
     if "mlp" in p:
         h2 = nn.rms_norm(x, p["ln2"], cfg.norm_eps)
@@ -137,6 +144,12 @@ def stack_cache_init(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
             r = cfg.rglru.d_rnn or cfg.d_model
             return rglru.RGLRUState.init(batch, r, cfg.rglru.conv_width,
                                          device=device)
+        if kind == "ssd":  # fp32 whatever the cache dtype, as the reference
+            sc = cfg.ssd
+            _, n_heads = ssd.ssd_dims(cfg)
+            return ssd.SSDState.init(batch, n_heads, sc.d_state,
+                                     sc.head_dim, sc.conv_width,
+                                     sc.n_groups, device=device)
         if kind == "local" and cfg.window and cfg.window < max_len:
             return attention.WindowKVCache.init(
                 batch, cfg.window, cfg.n_kv_heads, cfg.d_head, dtype, device)

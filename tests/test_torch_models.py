@@ -299,8 +299,11 @@ def test_registry_and_config_copy():
     assert (cfg.n_layers, cfg.d_model, cfg.vocab) == (38, 4096, 256000)
     with pytest.raises(KeyError):
         configs.get_config("yi-34b")
+    # MoE blocks are not ported (SSD blocks are: tests/test_torch_mamba.py)
+    moe = dataclasses.replace(cfg, mlp_type="moe",
+                              moe=configs.base.MoEConfig())
     with pytest.raises(NotImplementedError):
-        transformer.block_init(torch.Generator(), cfg, "ssd", 0)
+        transformer.block_init(torch.Generator(), moe, "rglru", 0)
 
 
 def test_param_count_and_init_match_jax_shapes():
@@ -343,4 +346,5 @@ def test_lm_serve_small_on_cpu():
     assert out["check"]["positions"] == 2 * 5
     assert out["check"]["rel_max_abs"] <= REL["float32"]
     assert out["check"]["argmax_agree"] == 1.0
-    assert out["forward_launches"] == {"flash_attention": 0, "rg_lru": 0}
+    assert out["forward_launches"] == {"flash_attention": 0, "rg_lru": 0,
+                                       "ssd_scan": 0}
