@@ -24,8 +24,9 @@ three paths through them:
     served logits checked against scoring at 1e-4; and the model cut to 3
     layers in fp32, card against CPU.
 
-Each phase prints its result and seconds; any failure raises and the
-exit code is not 0. The last line of standard output is `{"ok": true,
+Phase 3 also times flash attention beside PyTorch's SDPA (the same band
+mask) and fails unless the kernel is the faster. Each phase prints its
+result and seconds; any failure raises and the exit code is not 0. The last line of standard output is `{"ok": true,
 "device": {...}}`; the line before it lists each kernel with its
 launches on its path, its error against the plain version, its time per
 call, the plain version's, the bound and the library call's time.
@@ -52,6 +53,13 @@ TOL_AGG = 1e-6          # card vs CPU float aggregates (reduction order)
 # flash attention against its plain version: both fp32 inside, summed in
 # another order; a bf16 output rounds to 2^-8 relative
 TOL_FLASH = {"float32": 1e-4, "bfloat16": 2e-2}
+# and, for every case, each output row (b, position, head) against an fp32
+# plain version on the same inputs, as max |error| over the row / the
+# row's RMS: a long row averages ~2048 keys and its values are ~0.036,
+# where 2e-2 is about one value. The kernel's rounding (P and the output
+# to bf16, 2^-9 each) reads 1.6e-2 in a CPU emulation of its algorithm;
+# one 64-key tile missing from a 2048-key row reads about 0.5.
+TOL_FLASH_ROW = 5e-2
 # served logits (bf16, 38 layers) against scoring the same tokens: the
 # JAX package's ring-cache tolerance (tests/test_lm_details.py)
 TOL_SERVE = 5e-2
@@ -107,8 +115,23 @@ def libraries():
     return (etf.LIBRARY, fa.LIBRARY, rg.LIBRARY, ssd.LIBRARY)
 
 
+def _sass_counts(path: Path) -> dict:
+    """wgmma (HGMMA) and mma.sync (HMMA) instructions in a library's SASS
+    (cuobjdump ships with the nvcc that built it)."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        raise FileNotFoundError(f"cuobjdump not found ({tool})")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\.", sass))
+            for op in ("HGMMA", "HMMA")}
+
+
 def phase_build() -> dict:
-    """One nvcc per source, all started together, then load each."""
+    """One nvcc per source, all started together, then load each; show
+    flash's ptxas registers and spills and the wgmma count of its SASS."""
     from concurrent.futures import ThreadPoolExecutor
     libs = libraries()
     t0 = time.perf_counter()
@@ -120,6 +143,14 @@ def phase_build() -> dict:
     secs = {lib.name: s for lib, (_, s) in zip(libs, built)}
     for lib, (path, s) in zip(libs, built):
         log(f"[2 build] {path.relative_to(ROOT)} nvcc {s:.2f}s")
+        for line in lib.ptxas_lines():   # flash builds with -Xptxas -v
+            log(f"[2 build]   {lib.name} ptxas: {line}")
+    fa_path = libs[1].path()
+    counts = _sass_counts(fa_path)
+    log(f"[2 build] {fa_path.name} tensor-core instructions in the SASS: "
+        f"{counts}")
+    if not counts["HGMMA"]:
+        raise AssertionError("flash attention compiled without wgmma")
     log(f"[2 build] phase {time.perf_counter() - t0:.2f}s")
     return secs
 
@@ -355,7 +386,28 @@ FLASH_CASES = (
     (1, 300, 4, 2, 96, 64, 50.0, "bfloat16"),      # Dh 96, softcap, window
     (2, 33, 2, 1, 16, 0, 0.0, "float32"),          # Dh 16, one ragged tile
     (1, 1, 2, 2, 32, 0, 0.0, "float32"),           # S = 1
+    # the edges of the bf16 tensor-core kernel (128 query rows a block, 64
+    # keys a tile, Dh padded to 64, 128 or 256; TMA loads for rows of a
+    # multiple of 16 bytes, element copies for the others)
+    (1, 1024, 8, 1, 64, 0, 0.0, "bfloat16"),       # Dh 64, full causal
+    (1, 1024, 4, 2, 128, 0, 0.0, "bfloat16"),      # Dh 128, full causal, G 2
+    (2, 300, 4, 1, 40, 0, 0.0, "bfloat16"),        # Dh 40: 80-byte rows
+    (2, 300, 4, 2, 20, 0, 0.0, "bfloat16"),        # Dh 20: 40-byte rows
+    (1, 77, 6, 3, 20, 16, 30.0, "bfloat16"),       # Dh 20, W 16, softcap
+    (1, 512, 16, 1, 256, 16, 0.0, "bfloat16"),     # W 16, below a tile
+    (1, 4097, 16, 1, 256, 2048, 0.0, "bfloat16"),  # S 4097: one row over
+    (1, 65, 4, 4, 128, 0, 0.0, "bfloat16"),        # S 65, MHA
+    (2, 512, 8, 4, 256, 256, 0.0, "bfloat16"),     # GQA G 2, W 256
+    (1, 512, 8, 8, 256, 0, 0.0, "bfloat16"),       # MHA, Dh 256
+    (1, 1, 2, 1, 256, 0, 0.0, "bfloat16"),         # S = 1
+    (1, 333, 3, 1, 64, 100, 0.0, "bfloat16"),      # G 3: one head a block
 )
+# without the causal mask (no path runs it; the kernels take it): the
+# key range is all of S, with or without a window
+FLASH_NONCAUSAL = ((1, 300, 4, 2, 64, 0, 0.0, "bfloat16"),
+                   (1, 200, 4, 1, 128, 50, 0.0, "bfloat16"),
+                   (1, 100, 2, 1, 32, 16, 0.0, "float32"))
+FLASH_PREFILL = (4, 4096, 16, 1, 256, 2048, 0.0, "bfloat16")  # RG-9B prefill
 # RG-LRU cases: B, S, C, dtype
 RG_MAIN = (1, 4096, 4096, "float32")       # RG-9B forward, one sequence
 RG_CASES = (RG_MAIN, (2, 1000, 512, "bfloat16"), (3, 257, 999, "float32"),
@@ -379,31 +431,130 @@ def _rg_inputs(case, seed):
     return a.to(getattr(torch, dt)), b.to(getattr(torch, dt))
 
 
+def _flash_timing(case, iters, plain_iters) -> dict:
+    """The flash kernel, its plain version and SDPA with the same band mask
+    (the yardstick; the port never calls it) at one shape, with the
+    bound: the in-band pairs' FLOP at the bf16 rate against the bytes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as far
+    B, S, H, K, D, W, cap, dt = case
+    q, k, v = _flash_inputs(case, 1)
+    ok = far.band_mask(S, True, W, q.device)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok,
+                                         enable_gqa=True).transpose(1, 2)
+    lib_err = _max_abs_err(lib.float(), far.mha_reference(
+        q, k, v, causal=True, window=W).float())
+    del lib
+    pairs = int(ok.sum())
+    nbytes = _nbytes(q, k, v, q)
+    flop = 4 * D * pairs * B * H
+    bound, by = _bound_ms(nbytes, (flop, BF16_OPS_PER_S))
+    t = {"ms": _device_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, causal=True, window=W), iters=iters),
+         "plain_ms": _device_ms(lambda: far.mha_reference(
+             q, k, v, causal=True, window=W), iters=plain_iters),
+         "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, attn_mask=ok, enable_gqa=True), iters=iters),
+         "call_ms": _call_ms(lambda: fa.flash_attention_fwd(
+             q, k, v, causal=True, window=W), iters=iters),
+         "bound_ms": bound, "bound_by": by,
+         "shape": f"q [{B},{S},{H},{D}] k/v [{B},{S},{K},{D}] {dt} W={W}",
+         "flop": flop, "bytes": nbytes, "library_err": lib_err}
+    del q, k, v, qt, kt, vt, ok
+    torch.cuda.empty_cache()
+    return t
+
+
+def _row_err(got, want32) -> float:
+    """Max over the rows (b, position, head) of max |got - want32| over
+    the row divided by the row's RMS in want32 (NaN when a row is 0)."""
+    d = (got.float() - want32).abs().amax(-1)
+    return float((d / want32.pow(2).mean(-1).sqrt()).max())
+
+
+def _flash_planted_faults() -> dict:
+    """Three wrong outputs at the forward's shape, which the row check
+    must reject: the kernel run with W - 64 (one 64-key tile fewer in
+    every long row), the plain version without the interior keys 1024 ..
+    1087 (a skipped tile), and the kernel's output with its 2048-key rows
+    scaled by 0.97 (a normaliser that counts one of their 32 tiles twice).
+    -> {fault: (max abs err against the plain version, row error)}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as far
+    B, S, H, K, D, W, cap, dt = FLASH_MAIN
+    q, k, v = _flash_inputs(FLASH_MAIN, 100)   # phase 3's first case
+    want = far.mha_reference(q, k, v, causal=True, window=W)
+    want32 = far.mha_reference(q.float(), k.float(), v.float(), causal=True,
+                               window=W)
+    good = fa.flash_attention_fwd(q, k, v, causal=True, window=W)
+    ok = far.band_mask(S, True, W, q.device)
+    ok[:, 1024:1088] = False
+    qt, kt, vt = (x.float().transpose(1, 2) for x in (q, k, v))
+    long_rows = (torch.arange(S, device=q.device) >= W - 1)[:, None, None]
+    faults = {
+        "kernel at W - 64": fa.flash_attention_fwd(q, k, v, causal=True,
+                                                   window=W - 64),
+        "keys 1024..1087 skipped": F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=ok, enable_gqa=True).transpose(1, 2)
+        .to(q.dtype),
+        "long rows x 0.97": torch.where(long_rows, good.float() * 0.97,
+                                        good.float()).to(q.dtype)}
+    out = {}
+    for name, f in faults.items():
+        out[name] = (_max_abs_err(f.float(), want.float()),
+                     _row_err(f, want32))
+        if not out[name][1] > TOL_FLASH_ROW:
+            raise AssertionError(f"flash_attention: the row check passes "
+                                 f"the planted fault '{name}' "
+                                 f"({out[name][1]} <= {TOL_FLASH_ROW})")
+        log(f"[3 kernels] flash_attention planted fault '{name}': max abs "
+            f"err {out[name][0]:.3e} (TOL_FLASH {TOL_FLASH[dt]}), row err "
+            f"{out[name][1]:.3e} > {TOL_FLASH_ROW}: rejected")
+    del q, k, v, want, want32, good, ok, qt, kt, vt, faults
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_lm_kernels() -> dict:
     """Flash attention and the RG-LRU scan against their plain versions
     on the card, then each timed at the RecurrentGemma-9B path's shape."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa, ref as far
     from repro_torch.kernels.rg_lru import kernel as rg, ref as rgr
     t0 = time.perf_counter()
     err = {"flash_attention": 0.0, "rg_lru": 0.0}
-    for i, case in enumerate(FLASH_CASES):
+    row_err = 0.0
+    cases = ([(c, True) for c in FLASH_CASES + (FLASH_PREFILL,)]
+             + [(c, False) for c in FLASH_NONCAUSAL])
+    for i, (case, causal) in enumerate(cases):
         _, _, _, _, _, W, cap, dt = case
         q, k, v = _flash_inputs(case, 100 + i)
-        got = fa.flash_attention_fwd(q, k, v, causal=True, window=W,
+        got = fa.flash_attention_fwd(q, k, v, causal=causal, window=W,
                                      softcap=cap)
-        want = far.mha_reference(q, k, v, causal=True, window=W,
+        want = far.mha_reference(q, k, v, causal=causal, window=W,
                                  softcap=cap)
+        want32 = want if dt == "float32" else far.mha_reference(
+            q.float(), k.float(), v.float(), causal=causal, window=W,
+            softcap=cap)
         torch.cuda.synchronize()
         e = _max_abs_err(got.float(), want.float())
+        r = _row_err(got, want32)
         if got.dtype != want.dtype or not bool(torch.isfinite(got).all()) \
-                or e > TOL_FLASH[dt]:
-            raise AssertionError(f"flash_attention {case}: max abs err {e}"
-                                 f" > {TOL_FLASH[dt]}")
+                or e > TOL_FLASH[dt] or not r <= TOL_FLASH_ROW:
+            raise AssertionError(f"flash_attention {case} causal={causal}: "
+                                 f"max abs err {e} (limit {TOL_FLASH[dt]}), "
+                                 f"row err {r} (limit {TOL_FLASH_ROW})")
         err["flash_attention"] = max(err["flash_attention"], e)
-        log(f"[3 kernels] flash_attention {case}: max abs err {e:.3e}")
-        del q, k, v, got, want
+        row_err = max(row_err, r)
+        log(f"[3 kernels] flash_attention {case}"
+            f"{'' if causal else ' not causal'}: max abs err {e:.3e}, row "
+            f"err {r:.3e}")
+        del q, k, v, got, want, want32
+    torch.cuda.empty_cache()
+    faults = _flash_planted_faults()
     for i, case in enumerate(RG_CASES):
         a, b = _rg_inputs(case, 200 + i)
         got = rg.rg_lru_fwd(a, b)
@@ -414,32 +565,9 @@ def phase_lm_kernels() -> dict:
                                  f"(max abs err {_max_abs_err(got, want)})")
         log(f"[3 kernels] rg_lru {case}: bit-equal to plain")
 
-    timing = {}
-    B, S, H, K, D, W, cap, dt = FLASH_MAIN
-    q, k, v = _flash_inputs(FLASH_MAIN, 1)
-    ok = far.band_mask(S, True, W, q.device)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok,
-                                         enable_gqa=True).transpose(1, 2)
-    lib_err = _max_abs_err(lib.float(), far.mha_reference(
-        q, k, v, causal=True, window=W).float())
-    pairs = int(ok.sum())
-    nbytes = _nbytes(q, k, v, q)
-    bound, by = _bound_ms(nbytes, (4 * D * pairs * B * H, BF16_OPS_PER_S))
-    timing["flash_attention"] = {
-        "ms": _device_ms(lambda: fa.flash_attention_fwd(
-            q, k, v, causal=True, window=W), iters=20),
-        "plain_ms": _device_ms(lambda: far.mha_reference(
-            q, k, v, causal=True, window=W), iters=5),
-        "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=ok, enable_gqa=True), iters=20),
-        "call_ms": _call_ms(lambda: fa.flash_attention_fwd(
-            q, k, v, causal=True, window=W), iters=20),
-        "bound_ms": bound, "bound_by": by,
-        "shape": f"q [{B},{S},{H},{D}] k/v [{B},{S},{K},{D}] {dt} W={W}",
-        "flop": 4 * D * pairs * B * H, "bytes": nbytes,
-        "library_err": lib_err}
-    del q, k, v, qt, kt, vt, lib, ok
+    timing = {"flash_attention": _flash_timing(FLASH_MAIN, iters=20,
+                                               plain_iters=5)}
+    prefill = _flash_timing(FLASH_PREFILL, iters=5, plain_iters=1)
     B, S, C, dt = RG_MAIN
     a, b = _rg_inputs(RG_MAIN, 2)
     nbytes = _nbytes(a, b, a)
@@ -463,12 +591,27 @@ def phase_lm_kernels() -> dict:
             f"us ({t['bound_by']}: {t['flop']:.3e} FLOP, "
             f"{t['bytes'] / 1e6:.1f} MB); {t['bound_ms'] / t['ms']:.1%} of "
             "the bound")
+    t = timing["flash_attention"]
+    if not t["ms"] < t["library_ms"]:
+        raise AssertionError(f"flash_attention {t['ms']} ms per call, not "
+                             f"below SDPA's {t['library_ms']} ms")
+    t = prefill
+    log(f"[3 kernels] flash_attention at the prefill shape {t['shape']}: "
+        f"device {t['ms'] * 1e3:.1f} us/call (plain "
+        f"{t['plain_ms'] * 1e3:.1f} us, library {t['library_ms'] * 1e3:.1f} "
+        f"us), per call incl. launch {t['call_ms'] * 1e3:.1f} us, bound "
+        f"{t['bound_ms'] * 1e3:.1f} us ({t['bound_by']}: {t['flop']:.3e} "
+        f"FLOP, {t['bytes'] / 1e6:.1f} MB); {t['bound_ms'] / t['ms']:.1%} "
+        f"of the bound; sdpa max abs err vs plain {t['library_err']:.3e}")
     log(f"[3 kernels] sdpa yardstick max abs err vs plain "
         f"{timing['flash_attention']['library_err']:.3e}; "
-        f"{len(FLASH_CASES)} flash cases within tolerance, {len(RG_CASES)} "
+        f"{len(cases)} flash cases within tolerance (max abs err "
+        f"{err['flash_attention']:.3e}, row err {row_err:.3e}), "
+        f"{len(faults)} planted faults rejected, {len(RG_CASES)} "
         f"rg_lru cases bit-equal ({time.perf_counter() - t0:.1f}s)")
     torch.cuda.empty_cache()
-    return {"err": err, "timing": timing}
+    return {"err": err, "timing": timing, "flash_prefill": prefill,
+            "flash_row_err": row_err, "flash_faults": faults}
 
 
 # SSD scan cases: B, S, H, P, N, chunk, G, dtype

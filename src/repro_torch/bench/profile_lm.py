@@ -31,7 +31,7 @@ from repro_torch.core.device import resolve
 from repro_torch.models import lm
 
 GROUPS = (  # first match wins
-    ("flash_attention", ("flash_fwd_kernel",)),
+    ("flash_attention", ("flash_fwd",)),  # both dtypes' kernels
     ("rg_lru", ("rg_lru_kernel",)),
     ("ssd_scan", ("ssd_scan_kernel",)),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),

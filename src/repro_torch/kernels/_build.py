@@ -3,8 +3,11 @@
 Each kernel package keeps its source under `csrc/` and describes it as a
 `Library`: the source is compiled at first use with `nvcc` for `sm_90a`
 into a shared library under `build/repro_torch/` at the repository root,
-named by a hash of the source and the flags, so an edit rebuilds and an
-unchanged source is reused. The libraries have a plain C interface:
+named by a hash of every file in the source's `csrc/` directory (headers
+included) and of the flags, so an edit rebuilds and an unchanged source
+is reused. The compiler's output is kept beside the library (`.log`), so
+that `-Xptxas -v` register and spill lines can be read after a build.
+The libraries have a plain C interface:
 pointers go in as `c_void_p`, every kernel runs on the current PyTorch
 stream, and every entry point returns `cudaGetLastError()`, which
 `launch` turns into an exception.
@@ -51,9 +54,21 @@ class Library:
         self._cdll = None
 
     def path(self) -> Path:
-        digest = hashlib.sha256(self.src.read_bytes()
-                                + " ".join(self.flags).encode()).hexdigest()
-        return BUILD_DIR / f"{self.name}-{digest[:16]}.so"
+        h = hashlib.sha256(" ".join(self.flags).encode())
+        for f in sorted(p for p in self.src.parent.rglob("*") if p.is_file()):
+            h.update(str(f.relative_to(self.src.parent)).encode() + b"\0")
+            h.update(f.read_bytes())
+        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+
+    def ptxas_lines(self) -> list[str]:
+        """The register, spill and wgmma lines that ptxas printed when the
+        library was built with `-Xptxas -v` (else none)."""
+        log = self.path().with_suffix(".log")
+        if not log.exists():
+            return []
+        keys = ("Compiling entry", "registers", "spill", "wgmma")
+        return [ln.strip() for ln in log.read_text().splitlines()
+                if any(k in ln for k in keys)]
 
     def build(self) -> tuple[Path, float]:
         """Compile the library if it is not built yet; returns (path,
@@ -72,6 +87,7 @@ class Library:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}"
                                f"{proc.stderr}")
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
         return out, time.perf_counter() - t0
 

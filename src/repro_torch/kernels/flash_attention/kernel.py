@@ -1,7 +1,10 @@
 """CUDA flash attention (`csrc/flash_attention.cu`) and its ctypes wrapper.
 
-The source is built at first use by `kernels/_build.py` (nvcc for
-`sm_90a`). The wrapper checks device, dtype, shape and contiguity,
+bf16 inputs run on the tensor cores (wgmma fed by TMA, `ptx.cuh`), fp32
+inputs on the CUDA cores. The source is built at first use by
+`kernels/_build.py` (nvcc for `sm_90a`, with `-Xptxas -v`, whose
+register and spill lines the build log keeps). The wrapper checks
+device, dtype, shape and contiguity,
 allocates the output with `torch.empty`, launches on the current stream,
 raises on a nonzero `cudaGetLastError()`, and adds one to
 `LAUNCHES["flash_attention"]`. Nothing here runs on the CPU; `ops.py`
@@ -18,7 +21,8 @@ import torch
 from repro_torch.kernels import _build
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-NVCC_FLAGS = _build.BASE_FLAGS + _build.LINK_FLAGS
+# -Xptxas -v: the registers and spills of each kernel, kept in the build log
+NVCC_FLAGS = _build.BASE_FLAGS + ("-Xptxas", "-v") + _build.LINK_FLAGS
 MAX_DH = 256
 
 #: launches since the last reset (the plain version never counts)
@@ -42,7 +46,8 @@ LIBRARY = _build.Library("flash_attention", _SRC, NVCC_FLAGS, _bind)
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0):
     """q [B,S,H,Dh], k/v [B,S,K,Dh] on the GPU, fp32 or bf16, H % K == 0,
     Dh <= 256, any S >= 1 -> [B,S,H,Dh] in q's dtype, as
-    `ref.mha_reference`."""
+    `ref.mha_reference`. bf16 runs on the tensor cores, fp32 on the CUDA
+    cores."""
     B, S, H, Dh = q.shape
     K = k.shape[2]
     dev = q.device

@@ -16,8 +16,10 @@ from repro.kernels.flash_attention import kernel as jfa, ref as jfar  # noqa: E4
 from repro.kernels.rg_lru import kernel as jrg, ref as jrgr  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     kernel as fa_kernel, ops as fa_ops, ref as fa_ref)
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.rg_lru import (  # noqa: E402
     kernel as rg_kernel, ops as rg_ops, ref as rg_ref)
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 
 # the shapes of tests/test_kernels.py::FLASH_CASES
 FLASH_CASES = [
@@ -129,8 +131,33 @@ def test_ops_dispatch_by_device():
 
 
 @pytest.mark.parametrize("lib,name", [(fa_kernel.LIBRARY, "flash_attention"),
-                                      (rg_kernel.LIBRARY, "rg_lru")])
-def test_library_path_is_keyed_by_source(lib, name):
+                                      (rg_kernel.LIBRARY, "rg_lru"),
+                                      (ssd_kernel.LIBRARY, "ssd_scan"),
+                                      ("tmp", "toy")])
+def test_library_path_is_keyed_by_source(lib, name, tmp_path):
+    if lib == "tmp":
+        # a library over a csrc/ of its own: an edit to its header, a new
+        # file beside it or other flags give a new path; the same files
+        # and flags the same path
+        csrc = tmp_path / "csrc"
+        csrc.mkdir()
+        (csrc / "toy.cu").write_text('#include "toy.cuh"\n')
+        (csrc / "toy.cuh").write_text("#define N 1\n")
+        lib = _build.Library(name, csrc / "toy.cu", _build.BASE_FLAGS,
+                             lambda cdll: None)
+        first = lib.path()
+        assert _build.Library(name, csrc / "toy.cu", _build.BASE_FLAGS,
+                              lambda cdll: None).path() == first
+        (csrc / "toy.cuh").write_text("#define N 2\n")
+        second = lib.path()
+        assert second != first
+        (csrc / "extra.cuh").write_text("\n")
+        third = lib.path()
+        assert third not in (first, second)
+        flags = _build.BASE_FLAGS + ("-Xptxas", "-v")
+        assert _build.Library(name, csrc / "toy.cu", flags,
+                              lambda cdll: None).path() != third
+        assert lib.ptxas_lines() == []   # never built
     path = lib.path()
     assert path.parent.name == "repro_torch"
     assert path.parent.parent.name == "build"
