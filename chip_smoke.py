@@ -24,9 +24,18 @@ three paths through them:
     served logits checked against scoring at 1e-4; and the model cut to 3
     layers in fp32, card against CPU.
 
-Phase 3 also times flash attention beside PyTorch's SDPA (the same band
-mask) and fails unless the kernel is the faster. Each phase prints its
-result and seconds; any failure raises and the exit code is not 0. The last line of standard output is `{"ok": true,
+Phase 2 also builds three planted faults of the bf16 SSD kernel (copies
+of its source with one step broken), prints the ptxas registers and
+spills of the libraries built with -Xptxas -v, and fails unless flash
+attention's and the SSD scan's SASS hold wgmma that ptxas did not
+serialise and the bf16 SSD kernel spills nothing. Phase 3 also times
+flash attention beside PyTorch's SDPA (the same band mask) and fails
+unless the kernel is the faster; it holds every SSD case's y to its
+dtype's limit and h_last to the fp32 one, fails unless the planted
+faults are rejected, and times the bf16 SSD kernel beside the fp32
+CUDA-core route at the same shape, failing unless it is the faster.
+Each phase prints its result and seconds; any failure raises and the
+exit code is not 0. The last line of standard output is `{"ok": true,
 "device": {...}}`; the line before it lists each kernel with its
 launches on its path, its error against the plain version, its time per
 call, the plain version's, the bound and the library call's time.
@@ -46,7 +55,6 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
-TF32_OPS_PER_S = 495e12
 MAIN_S = 560            # scenarios in one oracle sweep (40 mixes x 14 rates)
 TOL_DERIVED = 1e-3      # the four ratios against BENCH_sweep.json
 TOL_AGG = 1e-6          # card vs CPU float aggregates (reduction order)
@@ -77,7 +85,9 @@ MIN_AGREE_MAMBA_BF16 = 0.75
 # SSD scan against its plain version (the sequential recurrence): fp32 in
 # both, summed in another order (tests/test_kernels.py's 1e-4); a bf16 y
 # rounds to 2^-8 relative (its bf16 test's 3e-2). Max abs error over
-# max(1, max |plain|), for y and h_last.
+# max(1, max |plain|). y is held to its dtype's limit, h_last (fp32 in
+# both routes) to the fp32 one: the bf16 kernel takes every fp32 operand
+# in two bf16 passes, and one pass would miss it (about 4e-4).
 TOL_SSD = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
@@ -115,6 +125,47 @@ def libraries():
     return (etf.LIBRARY, fa.LIBRARY, rg.LIBRARY, ssd.LIBRARY)
 
 
+# planted faults of the bf16 SSD kernel: each is the kernel's source with
+# these lines replaced, built beside it in phase 2 and run in phase 3,
+# where the checks must reject it: (name, ((line, replacement), ...))
+SSD_FAULTS = (
+    ("diagonal dropped",
+     (("m[e] = j <= i && i < Q", "m[e] = j < i && i < Q"),)),
+    ("chunk 3's incoming state zeroed",
+     (("const float e0 = ex2f(ci0), e1 = ex2f(ci1);",
+       "const float e0 = c == 3 ? 0.f : ex2f(ci0),\n"
+       "                e1 = c == 3 ? 0.f : ex2f(ci1);"),
+      ("ha[k][e] *= ae;", "ha[k][e] *= c == 3 ? 0.f : ae;"))),
+    ("state update in one bf16 pass",
+     (("*reinterpret_cast<uint32_t*>(wl + o) = lo;",
+       "*reinterpret_cast<uint32_t*>(wl + o) = 0u;"),)),
+)
+
+
+def ssd_fault_libraries():
+    """One library per planted fault, from a copy of `ssd_scan.cu` under
+    `build/repro_torch/faults/` (each replaced line must occur once)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    src = ssd.LIBRARY.src.read_text()
+    libs = []
+    for i, (name, edits) in enumerate(SSD_FAULTS):
+        text = src
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"planted fault '{name}': '{old}' "
+                                     f"occurs {text.count(old)} times")
+            text = text.replace(old, new)
+        path = _build.BUILD_DIR / "faults" / f"fault{i}" / "ssd_scan.cu"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        if not path.exists() or path.read_text() != text:
+            path.write_text(text)
+        libs.append(_build.Library(f"ssd_scan_fault{i}", path,
+                                   ssd.LIBRARY.flags, ssd._bind,
+                                   ssd.LIBRARY.include_dirs))
+    return libs
+
+
 def _sass_counts(path: Path) -> dict:
     """wgmma (HGMMA) and mma.sync (HMMA) instructions in a library's SASS
     (cuobjdump ships with the nvcc that built it)."""
@@ -129,30 +180,69 @@ def _sass_counts(path: Path) -> dict:
             for op in ("HGMMA", "HMMA")}
 
 
+def _ptxas_usage(lib, kernel: str) -> dict:
+    """Registers and spill bytes that ptxas reported for the entry whose
+    name contains `kernel` (the library is built with -Xptxas -v)."""
+    import re
+    out, inside = {}, False
+    for line in lib.ptxas_lines():
+        if "Compiling entry" in line:
+            inside = kernel in line
+        elif inside and "spill" in line:
+            out["spill_stores"] = int(re.search(
+                r"(\d+) bytes spill stores", line).group(1))
+            out["spill_loads"] = int(re.search(
+                r"(\d+) bytes spill loads", line).group(1))
+        elif inside and "registers" in line:
+            out["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+    if set(out) != {"registers", "spill_stores", "spill_loads"}:
+        raise AssertionError(f"{lib.name}: no ptxas report for {kernel}")
+    return out
+
+
 def phase_build() -> dict:
-    """One nvcc per source, all started together, then load each; show
-    flash's ptxas registers and spills and the wgmma count of its SASS."""
+    """One nvcc per source (and per planted SSD fault), all started
+    together, then load each; show the ptxas registers and spills of the
+    libraries built with -Xptxas -v, and the tensor-core instructions
+    (wgmma) in the SASS of flash attention and of the SSD scan."""
     from concurrent.futures import ThreadPoolExecutor
-    libs = libraries()
+    libs = list(libraries())
+    faults = ssd_fault_libraries()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(libs)) as pool:
-        built = [f.result() for f in [pool.submit(lib.build)
-                                      for lib in libs]]
-    for lib in libs:
+    with ThreadPoolExecutor(len(libs) + len(faults)) as pool:
+        futs = [pool.submit(lib.build) for lib in libs + faults]
+        built = [f.result() for f in futs]
+    for lib in libs + faults:
         lib.load()
     secs = {lib.name: s for lib, (_, s) in zip(libs, built)}
-    for lib, (path, s) in zip(libs, built):
+    for lib, (path, s) in zip(libs + faults, built):
         log(f"[2 build] {path.relative_to(ROOT)} nvcc {s:.2f}s")
-        for line in lib.ptxas_lines():   # flash builds with -Xptxas -v
-            log(f"[2 build]   {lib.name} ptxas: {line}")
-    fa_path = libs[1].path()
-    counts = _sass_counts(fa_path)
-    log(f"[2 build] {fa_path.name} tensor-core instructions in the SASS: "
-        f"{counts}")
-    if not counts["HGMMA"]:
-        raise AssertionError("flash attention compiled without wgmma")
+        if lib in libs:
+            for line in lib.ptxas_lines():   # built with -Xptxas -v
+                log(f"[2 build]   {lib.name} ptxas: {line}")
+    by_name = {lib.name: lib for lib in libs}
+    for name in ("flash_attention", "ssd_scan"):
+        path = by_name[name].path()
+        counts = _sass_counts(path)
+        log(f"[2 build] {path.name} tensor-core instructions in the SASS: "
+            f"{counts}")
+        if not counts["HGMMA"]:
+            raise AssertionError(f"{name} compiled without wgmma")
+        # ptxas serialises a wgmma sequence it cannot prove warpgroup-
+        # uniform (C7520), which costs the kernel its overlap
+        serial = [ln for ln in by_name[name].ptxas_lines()
+                  if "serialized" in ln]
+        if serial:
+            raise AssertionError(f"{name}: {serial[0]}")
+    use = _ptxas_usage(by_name["ssd_scan"], "ssd_scan_wgmma_kernel")
+    log(f"[2 build] ssd_scan_wgmma_kernel (bf16): {use['registers']} "
+        f"registers, spill stores {use['spill_stores']} bytes, spill loads "
+        f"{use['spill_loads']} bytes")
+    if use["spill_stores"] or use["spill_loads"]:
+        raise AssertionError(f"ssd_scan_wgmma_kernel spills: {use}")
     log(f"[2 build] phase {time.perf_counter() - t0:.2f}s")
-    return secs
+    return {"secs": secs, "ssd_ptxas": use, "ssd_faults": faults}
 
 
 # ---------------------------------------------------------------------------
@@ -628,7 +718,18 @@ SSD_CASES = (
     (1, 33, 4, 16, 16, 1, 1, "float32"),       # S = 33: chunk 1
     (2, 1, 4, 64, 128, 1, 1, "float32"),       # S = 1
     (1, 64, 2, 24, 12, 32, 1, "float32"),      # P, N not multiples of 32, 4
+    # the bf16 tensor-core kernel's edges (rows and state padded to 16, 32
+    # state columns a block, cp.async loads when N and P are multiples of
+    # 8, element loads otherwise)
+    (2, 512, 8, 64, 128, 128, 8, "bfloat16"),  # G = H at the path's widths
+    (1, 1024, 8, 64, 128, 64, 1, "bfloat16"),  # chunk 64, the path's widths
+    (1, 64, 2, 24, 12, 32, 1, "bfloat16"),     # P, N not multiples of 8
+    (1, 200, 3, 40, 96, 40, 3, "bfloat16"),    # P 40: a slice of 8; chunk 40
+    (1, 33, 4, 16, 16, 1, 1, "bfloat16"),      # chunk 1
+    (2, 1, 4, 64, 128, 1, 1, "bfloat16"),      # S = 1
 )
+# the planted faults (SSD_FAULTS) run at the path's widths
+SSD_FAULT_CASE = (1, 1024, 4, 64, 128, 128, 1, "bfloat16")
 
 
 def _ssd_inputs(case, seed):
@@ -649,9 +750,47 @@ def _ssd_inputs(case, seed):
     return x, dts, A, Bg, Cg
 
 
-def phase_ssd_kernels() -> dict:
-    """The SSD scan against its plain version on the card, then timed at
-    the Mamba-2 780M scoring shape."""
+def _ssd_errors(got, want, case) -> tuple[float, float]:
+    """(y, h_last) max abs error over max(1, max |plain|)."""
+    import torch
+    errs = []
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape \
+                or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"ssd_scan {case}: {a.dtype} "
+                                 f"{tuple(a.shape)} vs {b.dtype} "
+                                 f"{tuple(b.shape)}, or not finite")
+        e = _max_abs_err(a.float(), b.float())
+        errs.append(e / max(1.0, float(b.float().abs().max())))
+    return errs[0], errs[1]
+
+
+def _ssd_passes(case, errs) -> bool:
+    return errs[0] <= TOL_SSD[case[7]] and errs[1] <= TOL_SSD["float32"]
+
+
+def _ssd_launch(lib, x, dts, A, Bg, Cg, chunk):
+    """A planted fault's library, launched as `kernel.ssd_fwd` launches the
+    kernel's (not counted)."""
+    import torch
+    from repro_torch.kernels import _build
+    B, S, H, P = x.shape
+    G, N = Bg.shape[2], Bg.shape[3]
+    y = torch.empty_like(x)
+    h = torch.empty((B, H, N, P), dtype=torch.float32, device=x.device)
+    err = lib.load().ssd_scan_launch(
+        _build.ptr(x), _build.ptr(dts), _build.ptr(A), _build.ptr(Bg),
+        _build.ptr(Cg), _build.ptr(y), _build.ptr(h), B, S, H, P, G, N,
+        chunk, int(x.dtype == torch.bfloat16), _build.stream(x.device))
+    if err:
+        raise RuntimeError(f"{lib.name}: CUDA error {err}")
+    return y, h
+
+
+def phase_ssd_kernels(fault_libs) -> dict:
+    """The SSD scan against its plain version on the card, the planted
+    faults rejected, then the bf16 kernel timed at the Mamba-2 780M scoring
+    shape beside the fp32 CUDA-core route at the same shape."""
     import torch
     from repro_torch.kernels.ssd_scan import kernel as ssd, ops as ssd_ops
     t0 = time.perf_counter()
@@ -662,18 +801,10 @@ def phase_ssd_kernels() -> dict:
         got = ssd.ssd_fwd(*args, chunk=Q)
         want = ssd_ops.ssd_plain(*args)
         torch.cuda.synchronize()
-        errs = []
-        for a, b in zip(got, want):
-            if a.dtype != b.dtype or a.shape != b.shape \
-                    or not bool(torch.isfinite(a).all()):
-                raise AssertionError(f"ssd_scan {case}: {a.dtype} "
-                                     f"{tuple(a.shape)} vs {b.dtype} "
-                                     f"{tuple(b.shape)}, or not finite")
-            e = _max_abs_err(a.float(), b.float())
-            errs.append(e / max(1.0, float(b.float().abs().max())))
-        if max(errs) > TOL_SSD[dt]:
+        errs = _ssd_errors(got, want, case)
+        if not _ssd_passes(case, errs):
             raise AssertionError(f"ssd_scan {case}: y, h_last error {errs} "
-                                 f"> {TOL_SSD[dt]}")
+                                 f"> {TOL_SSD[dt]}, {TOL_SSD['float32']}")
         err = max(err, max(errs))
         log(f"[3 kernels] ssd_scan {case}: error y {errs[0]:.3e}, h_last "
             f"{errs[1]:.3e}")
@@ -685,40 +816,72 @@ def phase_ssd_kernels() -> dict:
     except ValueError:
         pass
 
+    # the planted faults, at the path's widths: each must be rejected
+    case = SSD_FAULT_CASE
+    args = _ssd_inputs(case, 400)
+    want = ssd_ops.ssd_plain(*args)
+    good = _ssd_errors(ssd.ssd_fwd(*args, chunk=case[5]), want, case)
+    log(f"[3 kernels] ssd_scan planted faults at {case}: the kernel's error "
+        f"y {good[0]:.3e}, h_last {good[1]:.3e}")
+    faults = {}
+    for (name, _), lib in zip(SSD_FAULTS, fault_libs):
+        got = _ssd_launch(lib, *args, case[5])
+        torch.cuda.synchronize()
+        faults[name] = _ssd_errors(got, want, case)
+        if _ssd_passes(case, faults[name]):
+            raise AssertionError(f"ssd_scan: the checks pass the planted "
+                                 f"fault '{name}' ({faults[name]})")
+        log(f"[3 kernels] ssd_scan planted fault '{name}': error y "
+            f"{faults[name][0]:.3e} (limit {TOL_SSD['bfloat16']}), h_last "
+            f"{faults[name][1]:.3e} (limit {TOL_SSD['float32']}): rejected")
+        del got
+    del args, want
+
     B, S, H, P, N, Q, G, dt = SSD_MAIN
     x, dts, A, Bg, Cg = _ssd_inputs(SSD_MAIN, 1)
-    # the causal half only (j <= i), as the kernel computes it: C B^T is a
-    # product of the inputs' dtype (bf16 on the path: the bf16 tensor-core
-    # rate, exact with fp32 accumulation); the masked scores times x, C h
-    # and the state update are products of fp32 values
+    # the causal half only (j <= i), as the kernels compute it: C B^T is a
+    # product of bf16 inputs (exact on the tensor cores with fp32
+    # accumulation); the masked scores times x, C h and the state update
+    # have one fp32 operand each, which the tensor cores take in two bf16
+    # passes. The CUDA-core design's bound: those at the 67 TFLOP/s fp32
+    # rate.
     chunks = B * H * (S // Q)
     cb_flop = chunks * Q * (Q + 1) * N
     f32_flop = chunks * (Q * (Q + 1) * P + 4 * Q * N * P)
-    cb_rate = BF16_OPS_PER_S if dt == "bfloat16" else F32_OPS_PER_S
     nbytes = _nbytes(x, dts, Bg, Cg, x) + B * H * N * P * 4
-    bound, by = _bound_ms(nbytes, (cb_flop, cb_rate),
-                          (f32_flop, F32_OPS_PER_S))
+    bound, by = _bound_ms(nbytes, (cb_flop, BF16_OPS_PER_S),
+                          (2 * f32_flop, BF16_OPS_PER_S))
+    f32_rate_bound = _bound_ms(nbytes, (cb_flop, BF16_OPS_PER_S),
+                               (f32_flop, F32_OPS_PER_S))[0]
+    x32, B32, C32 = x.float(), Bg.float(), Cg.float()
     t = {"ms": _device_ms(lambda: ssd.ssd_fwd(x, dts, A, Bg, Cg, chunk=Q),
                           iters=20),
+         "cuda_core_ms": _device_ms(
+             lambda: ssd.ssd_fwd(x32, dts, A, B32, C32, chunk=Q), iters=5),
          "plain_ms": _device_ms(
              lambda: ssd_ops.ssd_plain(x, dts, A, Bg, Cg), iters=1),
          "library_ms": None,
          "call_ms": _call_ms(lambda: ssd.ssd_fwd(x, dts, A, Bg, Cg, chunk=Q),
                              iters=20),
          "bound_ms": bound, "bound_by": by,
-         "tf32_bound_ms": _bound_ms(nbytes, (cb_flop, cb_rate),
-                                    (f32_flop, TF32_OPS_PER_S))[0]}
-    del x, dts, A, Bg, Cg
+         "f32_rate_bound_ms": f32_rate_bound, "faults": faults}
+    del x, dts, A, Bg, Cg, x32, B32, C32
     log(f"[3 kernels] ssd_scan at x [{B},{S},{H},{P}] B/C [{B},{S},{G},{N}] "
-        f"{dt} chunk {Q}: device {t['ms'] * 1e3:.1f} us/call (plain "
-        f"{t['plain_ms'] * 1e3:.1f} us, library none), per call incl. launch "
-        f"{t['call_ms'] * 1e3:.1f} us, bound {t['bound_ms'] * 1e3:.1f} us "
-        f"({by}: C B^T {cb_flop:.3e} FLOP at {cb_rate / 1e12:.0f} TFLOP/s, "
-        f"{f32_flop:.3e} FLOP at 67 TFLOP/s fp32, {nbytes / 1e6:.1f} MB; "
-        f"the fp32 part at the TF32 tensor-core rate "
-        f"{t['tf32_bound_ms'] * 1e3:.1f} us); "
+        f"{dt} chunk {Q}: device {t['ms'] * 1e3:.1f} us/call (the fp32 "
+        f"CUDA-core route at the same shape {t['cuda_core_ms'] * 1e3:.1f} "
+        f"us, plain {t['plain_ms'] * 1e3:.1f} us, library none), per call "
+        f"incl. launch {t['call_ms'] * 1e3:.1f} us, bound "
+        f"{t['bound_ms'] * 1e3:.1f} us ({by}: C B^T {cb_flop:.3e} FLOP and "
+        f"2 x {f32_flop:.3e} FLOP at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s, "
+        f"{nbytes / 1e6:.1f} MB; with the fp32 operands' products at 67 "
+        f"TFLOP/s fp32 {f32_rate_bound * 1e3:.1f} us); "
         f"{t['bound_ms'] / t['ms']:.1%} of the bound; {len(SSD_CASES)} cases "
-        f"within tolerance ({time.perf_counter() - t0:.1f}s)")
+        f"within tolerance, {len(faults)} planted faults rejected "
+        f"({time.perf_counter() - t0:.1f}s)")
+    if not t["ms"] < t["cuda_core_ms"]:
+        raise AssertionError(f"ssd_scan bf16 {t['ms']} ms per call, not "
+                             f"below the CUDA-core route's "
+                             f"{t['cuda_core_ms']} ms")
     torch.cuda.empty_cache()
     return {"err": {"ssd_scan": err}, "timing": {"ssd_scan": t}}
 
@@ -1049,10 +1212,10 @@ KERNELS = (  # name, source, TPU kernel replaced, path
 def main() -> int:
     import torch
     phase_device()
-    phase_build()
+    built = phase_build()
     kern = phase_kernels()
     lm_kern = phase_lm_kernels()
-    ssd_kern = phase_ssd_kernels()
+    ssd_kern = phase_ssd_kernels(built["ssd_faults"])
     das_path = phase_main()
     phase_cross(das_path["out"]["trees"])
     lm_path = phase_lm()

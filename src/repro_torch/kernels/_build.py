@@ -3,10 +3,12 @@
 Each kernel package keeps its source under `csrc/` and describes it as a
 `Library`: the source is compiled at first use with `nvcc` for `sm_90a`
 into a shared library under `build/repro_torch/` at the repository root,
-named by a hash of every file in the source's `csrc/` directory (headers
-included) and of the flags, so an edit rebuilds and an unchanged source
-is reused. The compiler's output is kept beside the library (`.log`), so
-that `-Xptxas -v` register and spill lines can be read after a build.
+named by a hash of every file in the source's `csrc/` directory and in
+its include directories (`include/`, shared by the kernels, is passed as
+`-I`) and of the flags, so an edit to a source or to a shared header
+rebuilds every library that reads it and an unchanged source is reused.
+The compiler's output is kept beside the library (`.log`), so that
+`-Xptxas -v` register and spill lines can be read after a build.
 The libraries have a plain C interface:
 pointers go in as `c_void_p`, every kernel runs on the current PyTorch
 stream, and every entry point returns `cudaGetLastError()`, which
@@ -26,6 +28,8 @@ from pathlib import Path
 import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+#: headers shared by the kernels (`ptx.cuh`)
+INCLUDE_DIR = Path(__file__).resolve().parent / "include"
 #: flags every library shares; a library may add its own (`-fmad=false`)
 BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3")
@@ -47,17 +51,21 @@ class Library:
     """One CUDA source compiled into one shared library, loaded once.
 
     `bind(lib)` declares the entry points' `argtypes` and `restype` when
-    the library is first loaded."""
+    the library is first loaded. `include_dirs` are passed to nvcc as
+    `-I` and their files are part of the library's hash."""
 
-    def __init__(self, name: str, src: Path, flags: tuple, bind):
+    def __init__(self, name: str, src: Path, flags: tuple, bind,
+                 include_dirs: tuple = ()):
         self.name, self.src, self.flags, self._bind = name, src, flags, bind
+        self.include_dirs = tuple(Path(d) for d in include_dirs)
         self._cdll = None
 
     def path(self) -> Path:
         h = hashlib.sha256(" ".join(self.flags).encode())
-        for f in sorted(p for p in self.src.parent.rglob("*") if p.is_file()):
-            h.update(str(f.relative_to(self.src.parent)).encode() + b"\0")
-            h.update(f.read_bytes())
+        for i, root in enumerate((self.src.parent, *self.include_dirs)):
+            for f in sorted(p for p in root.rglob("*") if p.is_file()):
+                h.update(f"{i}/{f.relative_to(root)}".encode() + b"\0")
+                h.update(f.read_bytes())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
     def ptxas_lines(self) -> list[str]:
@@ -80,7 +88,8 @@ class Library:
         t0 = time.perf_counter()
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
         os.close(fd)
-        cmd = [nvcc(), *self.flags, "-o", tmp, str(self.src)]
+        incs = [f"-I{d}" for d in self.include_dirs]
+        cmd = [nvcc(), *self.flags, *incs, "-o", tmp, str(self.src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             os.unlink(tmp)

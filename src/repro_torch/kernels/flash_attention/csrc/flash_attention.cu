@@ -642,44 +642,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_q,
     }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-    static EncodeTiled fn = nullptr;
-    if (!fn) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult res;
-        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                    cudaEnableDefault, &res) == cudaSuccess &&
-            res == cudaDriverEntryPointSuccess)
-            fn = reinterpret_cast<EncodeTiled>(p);
-    }
-    return fn;
-}
-
 // x [B, S, heads, Dh] bf16 as a 4-d tensor map, boxes of 64 columns x `rows`
 // positions of one head, 128-byte swizzle, zeros outside
 bool tensor_map(CUtensorMap* map, const void* x, int B, int S, int heads,
                 int Dh, int rows) {
-    EncodeTiled enc = encode_tiled();
-    if (!enc) return false;
-    const cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)heads,
-                                (cuuint64_t)S, (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)Dh * 2,
-                                   (cuuint64_t)heads * Dh * 2,
-                                   (cuuint64_t)S * heads * Dh * 2};
-    const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-    const cuuint32_t estr[4] = {1, 1, 1, 1};
-    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
-               dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+    return ptx::tensor_map_4d(map, x, Dh, heads, S, B, 64, rows,
+                              CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int DP>

@@ -1,6 +1,7 @@
 """CUDA flash attention (`csrc/flash_attention.cu`) and its ctypes wrapper.
 
-bf16 inputs run on the tensor cores (wgmma fed by TMA, `ptx.cuh`), fp32
+bf16 inputs run on the tensor cores (wgmma fed by TMA, the shared
+`kernels/include/ptx.cuh`), fp32
 inputs on the CUDA cores. The source is built at first use by
 `kernels/_build.py` (nvcc for `sm_90a`, with `-Xptxas -v`, whose
 register and spill lines the build log keeps). The wrapper checks
@@ -40,7 +41,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.restype = ctypes.c_int
 
 
-LIBRARY = _build.Library("flash_attention", _SRC, NVCC_FLAGS, _bind)
+LIBRARY = _build.Library("flash_attention", _SRC, NVCC_FLAGS, _bind,
+                         include_dirs=(_build.INCLUDE_DIR,))
 
 
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0):

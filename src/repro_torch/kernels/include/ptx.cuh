@@ -1,6 +1,8 @@
-// PTX wrappers for the bf16 flash attention kernel (sm_90a): Hopper's
-// warpgroup products (wgmma) with their shared-memory descriptors, the
-// mbarriers and TMA loads that feed them, and setmaxnreg.
+// PTX wrappers shared by the port's bf16 tensor-core kernels, flash
+// attention and the SSD scan (sm_90a): Hopper's warpgroup products (wgmma)
+// with their shared-memory descriptors, TMA tensor maps and loads, the
+// mbarriers they complete on, setmaxnreg, and cp.async. Libraries include
+// it through `-I` (see `kernels/_build.py`).
 //
 // Register fragments of wgmma.m64nNk16 (warp w of the warpgroup owns rows
 // 16w .. 16w + 15; g = lane / 4, t = lane % 4), each 32-bit register two
@@ -13,10 +15,54 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace ptx {
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda);
+// null when the driver does not have it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (!fn) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult res;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                    cudaEnableDefault, &res) == cudaSuccess &&
+            res == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(p);
+    }
+    return fn;
+}
+
+// a bf16 array [d3][d2][d1][d0] (d0 innermost, contiguous) as a 4-d tensor
+// map with boxes of box0 x 1 x rows x 1, zeros outside the array
+inline bool tensor_map_4d(CUtensorMap* map, const void* x, int d0, int d1,
+                          int d2, int d3, int box0, int rows,
+                          CUtensorMapSwizzle swizzle) {
+    EncodeTiled enc = encode_tiled();
+    if (!enc) return false;
+    const cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1,
+                                (cuuint64_t)d2, (cuuint64_t)d3};
+    const cuuint64_t strides[3] = {(cuuint64_t)d0 * 2,
+                                   (cuuint64_t)d1 * d0 * 2,
+                                   (cuuint64_t)d2 * d1 * d0 * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)box0, 1, (cuuint32_t)rows, 1};
+    const cuuint32_t estr[4] = {1, 1, 1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+               dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -96,6 +142,87 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d = A B (accumulate = 0) or d += A B, one 64 x 32 x 16 step; A and B
+// K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15 "
+        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// the same with A MN-major (stored transposed: M contiguous), B K-major
+__device__ __forceinline__ void wgmma_ss_n32_ta(float (&d)[16], uint64_t da,
+                                               uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15 "
+        "}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d = A B (accumulate = 0) or d += A B, one 64 x 128 x 16 step; A and B
+// K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                             uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d = A B (accumulate = 0) or d += A B, one 64 x 32 x 16 step; A (bf16)
+// in registers (the A fragment above), B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15 "
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate));
 }
 
 // d = A B (accumulate = 0) or d += A B, one 64 x 64 x 16 step; A (bf16)
@@ -268,6 +395,28 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 // named barrier 1 over the 128 threads of the producer warpgroup
 __device__ __forceinline__ void bar_sync_producers() {
     asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// cp.async (sm_80 and later)
+// ---------------------------------------------------------------------------
+
+// an asynchronous copy of 4 bytes into shared memory: `bytes` (4 or 0)
+// read from global memory, the rest of the destination filled with zeros
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src,
+                                           int bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace ptx

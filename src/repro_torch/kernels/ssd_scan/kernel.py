@@ -1,7 +1,10 @@
 """CUDA SSD chunked scan (`csrc/ssd_scan.cu`) and its ctypes wrapper.
 
-The source is built at first use by `kernels/_build.py` (nvcc for
-`sm_90a`). The wrapper checks device, dtype, shape and contiguity,
+bf16 inputs run on the tensor cores (wgmma fed by TMA, the shared
+`kernels/include/ptx.cuh`), fp32 inputs on the CUDA cores. The
+source is built at first use by `kernels/_build.py` (nvcc for `sm_90a`,
+with `-Xptxas -v`, whose register and spill lines the build log keeps).
+The wrapper checks device, dtype, shape and contiguity,
 allocates the outputs with `torch.empty`, launches on the current
 stream, raises on a nonzero `cudaGetLastError()`, and adds one to
 `LAUNCHES["ssd_scan"]`. Unlike the TPU kernel it takes B and C per group,
@@ -18,7 +21,8 @@ import torch
 from repro_torch.kernels import _build
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
-NVCC_FLAGS = _build.BASE_FLAGS + _build.LINK_FLAGS
+# -Xptxas -v: the registers and spills of each kernel, kept in the build log
+NVCC_FLAGS = _build.BASE_FLAGS + ("-Xptxas", "-v") + _build.LINK_FLAGS
 MAX_CHUNK = 128
 MAX_STATE = 128
 
@@ -36,7 +40,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ssd_scan_launch.restype = ctypes.c_int
 
 
-LIBRARY = _build.Library("ssd_scan", _SRC, NVCC_FLAGS, _bind)
+LIBRARY = _build.Library("ssd_scan", _SRC, NVCC_FLAGS, _bind,
+                         include_dirs=(_build.INCLUDE_DIR,))
 
 
 def check_chunk(S: int, chunk: int) -> None:
@@ -51,7 +56,7 @@ def ssd_fwd(x, dt, A, Bg, Cg, *, chunk=128):
     with G dividing H, on the GPU; 1 <= chunk <= 128
     divides S, N <= 128. Returns (y [B,S,H,P] in x's dtype, h_last
     [B,H,N,P] fp32), as `ref.ssd_reference` with B and C repeated to
-    heads."""
+    heads. bf16 runs on the tensor cores, fp32 on the CUDA cores."""
     B, S, H, P = x.shape
     G, N = Bg.shape[2], Bg.shape[3]
     dev = x.device

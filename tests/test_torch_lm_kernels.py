@@ -163,3 +163,32 @@ def test_library_path_is_keyed_by_source(lib, name, tmp_path):
     assert path.parent.parent.name == "build"
     assert path.name.startswith(f"{name}-") and path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in lib.flags
+
+
+def test_library_path_is_keyed_by_shared_headers(tmp_path):
+    """An edit to a header of a shared include directory gives every
+    library that includes it a new path, as an edit to its own source
+    does; flash attention and the SSD scan both read `kernels/include/`
+    (`ptx.cuh`)."""
+    csrc, inc = tmp_path / "csrc", tmp_path / "include"
+    csrc.mkdir()
+    inc.mkdir()
+    (inc / "shared.cuh").write_text("#define N 1\n")
+    libs = []
+    for name in ("one", "two"):
+        (csrc / f"{name}.cu").write_text('#include "shared.cuh"\n')
+        libs.append(_build.Library(name, csrc / f"{name}.cu",
+                                   _build.BASE_FLAGS, lambda cdll: None,
+                                   include_dirs=(inc,)))
+    first = [lib.path() for lib in libs]
+    assert _build.Library("one", csrc / "one.cu", _build.BASE_FLAGS,
+                          lambda cdll: None).path() != first[0]
+    (inc / "shared.cuh").write_text("#define N 2\n")
+    second = [lib.path() for lib in libs]
+    assert all(a != b for a, b in zip(first, second))
+    (inc / "shared.cuh").write_text("#define N 1\n")
+    assert [lib.path() for lib in libs] == first
+    for lib in (fa_kernel.LIBRARY, ssd_kernel.LIBRARY):
+        assert lib.include_dirs == (_build.INCLUDE_DIR,)
+        assert (_build.INCLUDE_DIR / "ptx.cuh").is_file()
+        assert not (lib.src.parent / "ptx.cuh").exists()
