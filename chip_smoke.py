@@ -9,8 +9,11 @@ three paths through them:
 
   * the DAS scheduling pipeline (summary40 at the benchmark's full size:
     40 mixes x 14 rates, 60 frames per workload, 19 PEs), checked against
-    `benchmarks/BENCH_sweep.json`, and the card's schedules against the
-    CPU's;
+    `benchmarks/BENCH_sweep.json`, its super-steps and launches counted,
+    and the card's schedules against the CPU's; on the card the simulator
+    replays each block of super-steps from one CUDA graph, which phase 4
+    times against the eager loop (one oracle-sized sweep, in turns) and
+    phase 5 holds to it in every result field;
   * RecurrentGemma-9B inference at full width and depth (38 layers,
     d_model 4096, vocab 256,000, random weights from a seed): scoring
     4096 tokens, then serving 4 prompts of 4096 tokens with 32 greedy
@@ -28,7 +31,11 @@ Phase 2 also builds three planted faults of the bf16 SSD kernel (copies
 of its source with one step broken), prints the ptxas registers and
 spills of the libraries built with -Xptxas -v, and fails unless flash
 attention's and the SSD scan's SASS hold wgmma that ptxas did not
-serialise and the bf16 SSD kernel spills nothing. Phase 3 also times
+serialise and the bf16 SSD kernel spills nothing. Phase 3 holds the
+decision kernels (the fixed and the generic search, the fused push rows)
+to their plain versions bit for bit, and the three LM wrappers, on
+widths and dtypes the models do not make (flash with Dv != Dh, the scans
+with mixed dtypes), to theirs. Phase 3 also times
 flash attention beside PyTorch's SDPA (the same band mask) and fails
 unless the kernel is the faster; it holds every SSD case's y to its
 dtype's limit and h_last to the fp32 one, fails unless the planted
@@ -57,6 +64,7 @@ F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 MAIN_S = 560            # scenarios in one oracle sweep (40 mixes x 14 rates)
 TOL_DERIVED = 1e-3      # the four ratios against BENCH_sweep.json
+SUMMARY40_STEPS = 14208  # super-steps of the eight summary40 sweeps
 TOL_AGG = 1e-6          # card vs CPU float aggregates (reduction order)
 # flash attention against its plain version: both fp32 inside, summed in
 # another order; a bf16 output rounds to 2^-8 relative
@@ -321,6 +329,54 @@ def push_case(S, K=4, MP=4, P=19, seed=0, all_patterns=False, nan=False):
                  (pfin, cost, pcl, pv, pecl, bases))
 
 
+def rows_case(S, T=1200, K=4, MP=4, seed=0, nan=False):
+    """Random `avail_rows` inputs on the card at the simulator's layout:
+    tasks [S, K], the flat finish/pe_of buffers [S*T + 1], preds [S, T, MP]
+    (-1 pads), n_preds [S, T] in 0..MP (so every validity pattern of a
+    prefix), out_kb [S, T], the SoC's us_per_kb and PE clusters, bases
+    [S, K]; unscheduled predecessors (finish inf, pe_of -1) and, with
+    `nan`, NaN finish times and inf sizes."""
+    import numpy as np
+    import torch
+    from repro_torch.core import soc
+    rng = np.random.RandomState(seed)
+    cfg = soc.default_soc()
+    tasks = rng.randint(0, T, size=(S, K))
+    finish = (rng.uniform(size=S * T + 1) * 1000).astype(np.float32)
+    pe_of = rng.randint(-1, len(cfg.pe_cluster), size=S * T + 1)
+    finish[pe_of < 0] = np.inf
+    preds = rng.randint(-1, T, size=(S, T, MP))
+    n_preds = rng.randint(0, MP + 1, size=(S, T))
+    out_kb = (rng.uniform(size=(S, T)) * 64).astype(np.float32)
+    if nan:
+        finish[rng.randint(finish.size, size=8 + S)] = np.nan
+        out_kb.reshape(-1)[rng.randint(out_kb.size, size=8 + S)] = np.inf
+    bases = (rng.uniform(size=(S, K)) * 500).astype(np.float32)
+    dev = "cuda"
+    return tuple(torch.as_tensor(x, device=dev) for x in (
+        tasks, finish, pe_of, preds, n_preds, out_kb,
+        np.float32(cfg.us_per_kb), np.asarray(cfg.pe_cluster, np.int32),
+        bases))
+
+
+def _rows_work(case) -> tuple[int, int]:
+    """(bytes, operations) that `avail_rows` needs on these inputs: each
+    task, its predecessor count and row, each valid predecessor's finish
+    time, size, PE and cluster, the clusters, bases and rows, read or
+    written once; a multiply per valid predecessor, then per output and
+    predecessor a multiply, an add and a max, and the max with the base."""
+    import torch
+    tasks, finish, pe_of, preds, n_preds, out_kb, upk, pecl, bases = case
+    S, K = tasks.shape
+    MP = preds.shape[2]
+    P = pecl.shape[0]
+    lane = torch.arange(S, device=tasks.device)[:, None]
+    valid = int(n_preds[lane, tasks].sum())
+    nbytes = (_nbytes(tasks, upk, pecl, bases) + S * K * (8 + MP * 8)
+              + valid * (4 + 4 + 8 + 4) + S * K * P * 4)
+    return nbytes, valid + S * K * P * (3 * MP + 1)
+
+
 def _device_ms(fn, iters=200) -> float:
     """Device time per call: `iters` calls captured in one CUDA graph,
     replayed between two events (launch overhead amortised)."""
@@ -379,33 +435,54 @@ def phase_kernels() -> dict:
     from repro_torch.kernels.etf_ft import kernel, ref
     t0 = time.perf_counter()
     err = {"etf_ft_search_masked": 0.0, "etf_ft_search": 0.0,
-           "push_rows": 0.0}
+           "push_rows": 0.0, "avail_rows": 0.0}
     n_cases = 0
+
+    def check_search(case, tag):
+        """Both searches against their plain versions, masked with and
+        without pe_alive, bit for bit."""
+        for alive in (case[5], None):
+            c = case[:5] + (alive,)
+            got = kernel.etf_ft_search_masked(*c)
+            want = ref.etf_ft_masked_reference(*c)
+            for a, b in zip(got, want):
+                if not _bits_equal(a, b):
+                    raise AssertionError(f"etf_ft_search_masked {tag} alive="
+                                         f"{alive is not None}: kernel != "
+                                         "plain")
+                err["etf_ft_search_masked"] = max(
+                    err["etf_ft_search_masked"], _max_abs_err(a, b))
+        got = kernel.etf_ft_search(*case[:4])
+        want = ref.etf_ft_reference(*case[:4])
+        for a, b in zip(got, want):
+            if not _bits_equal(a, b):
+                raise AssertionError(f"etf_ft_search {tag}: kernel != plain")
+            err["etf_ft_search"] = max(err["etf_ft_search"],
+                                       _max_abs_err(a, b))
+
+    # the generic kernel: other [R, P] shapes, and the path's shape at
+    # pointers that are not 16-byte aligned (no float4 loads)
+    for i, (S, R, P) in enumerate(((7, 5, 19), (33, 24, 7), (MAIN_S, 16, 20),
+                                   (4, 1, 1), (65, 40, 19))):
+        for ties, special in ((False, False), (True, True)):
+            check_search(search_case(S, R, P, seed=500 + i, ties=ties,
+                                     special=special),
+                         f"S={S} R={R} P={P} ties={ties} special={special}")
+            n_cases += 3
+    case = search_case(MAIN_S, seed=9, ties=True, special=True)
+    shifted = []
+    for x in case[:3]:
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        shifted.append(buf[1:].view(x.shape).copy_(x))
+    check_search(tuple(shifted) + case[3:], "misaligned")
+    n_cases += 3
     for S in (1, 7, MAIN_S, 4096):
         for seed, (ties, special) in enumerate(
                 [(False, False), (True, False), (False, True),
                  (True, True)]):
-            case = search_case(S, seed=1000 * S + seed, ties=ties,
-                               special=special)
-            for name, alive in (("etf_ft_search_masked", case[5]),
-                                ("etf_ft_search_masked", None)):
-                c = case[:5] + (alive,)
-                got = kernel.etf_ft_search_masked(*c)
-                want = ref.etf_ft_masked_reference(*c)
-                for a, b in zip(got, want):
-                    if not _bits_equal(a, b):
-                        raise AssertionError(
-                            f"{name} S={S} ties={ties} special={special} "
-                            f"alive={alive is not None}: kernel != plain")
-                    err[name] = max(err[name], _max_abs_err(a, b))
-            got = kernel.etf_ft_search(*case[:4])
-            want = ref.etf_ft_reference(*case[:4])
-            for a, b in zip(got, want):
-                if not _bits_equal(a, b):
-                    raise AssertionError(f"etf_ft_search S={S} ties={ties} "
-                                         f"special={special}: kernel != plain")
-                err["etf_ft_search"] = max(err["etf_ft_search"],
-                                           _max_abs_err(a, b))
+            check_search(search_case(S, seed=1000 * S + seed, ties=ties,
+                                     special=special),
+                         f"S={S} ties={ties} special={special}")
             n_cases += 3
         for seed, (pats, nan) in enumerate([(False, False), (True, False),
                                             (True, True)]):
@@ -418,6 +495,16 @@ def phase_kernels() -> dict:
                                      f"nan={nan}: kernel != plain")
             err["push_rows"] = max(err["push_rows"], _max_abs_err(got, want))
             n_cases += 1
+        for seed, nan in enumerate((False, True)):
+            case = rows_case(S, seed=3000 * S + seed, nan=nan)
+            got = kernel.avail_rows(*case)
+            want = ref.avail_rows_reference(*case)
+            if not _bits_equal(got, want):
+                raise AssertionError(f"avail_rows S={S} nan={nan}: kernel "
+                                     "!= plain")
+            err["avail_rows"] = max(err["avail_rows"],
+                                    _max_abs_err(got, want))
+            n_cases += 1
     # an all-masked lane: slot 0, pe 0, infeasible
     case = search_case(4, seed=7)
     case = case[:4] + (torch.zeros_like(case[4]), case[5])
@@ -429,6 +516,8 @@ def phase_kernels() -> dict:
     # time per call at the main path's shapes (one oracle sweep's lanes)
     sc = search_case(MAIN_S, seed=3)
     pc = push_case(MAIN_S, seed=4)
+    rc = rows_case(MAIN_S, seed=5)
+    rows_bytes, rows_ops = _rows_work(rc)
     S, R, P = sc[0].shape
     cells = S * R * P
     timing = {}
@@ -445,7 +534,10 @@ def phase_kernels() -> dict:
              lambda: kernel.push_rows(*pc),
              lambda: ref.push_rows_reference(*pc, 6),
              _nbytes(*pc) + pc[0].shape[0] * pc[0].shape[1] * P * 4,
-             pc[0].numel() * P * 3 + pc[0].shape[0] * pc[0].shape[1] * P)):
+             pc[0].numel() * P * 3 + pc[0].shape[0] * pc[0].shape[1] * P),
+            ("avail_rows",
+             lambda: kernel.avail_rows(*rc),
+             lambda: ref.avail_rows_reference(*rc), rows_bytes, rows_ops)):
         bound, by = _bound_ms(nb, (ops, F32_OPS_PER_S))
         timing[name] = {
             "ms": _device_ms(fk), "plain_ms": _device_ms(fp),
@@ -458,7 +550,8 @@ def phase_kernels() -> dict:
             f"{t['plain_call_ms'] * 1e3:.2f} us), bound "
             f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']})")
     log(f"[3 kernels] {n_cases} cases bit-equal at S in (1, 7, {MAIN_S}, "
-        f"4096) ({time.perf_counter() - t0:.1f}s)")
+        f"4096), other [R, P] shapes and misaligned inputs "
+        f"({time.perf_counter() - t0:.1f}s)")
     return {"err": err, "timing": timing}
 
 
@@ -498,6 +591,12 @@ FLASH_NONCAUSAL = ((1, 300, 4, 2, 64, 0, 0.0, "bfloat16"),
                    (1, 200, 4, 1, 128, 50, 0.0, "bfloat16"),
                    (1, 100, 2, 1, 32, 16, 0.0, "float32"))
 FLASH_PREFILL = (4, 4096, 16, 1, 256, 2048, 0.0, "bfloat16")  # RG-9B prefill
+# a value width Dv other than the head width Dh (the wrapper pads the
+# narrower operands): B, S, H, K, Dh, Dv, window, softcap, dtype
+FLASH_DV_CASES = ((1, 300, 4, 2, 64, 32, 64, 0.0, "bfloat16"),
+                  (1, 300, 4, 2, 64, 128, 0, 0.0, "bfloat16"),
+                  (2, 129, 4, 1, 128, 64, 0, 30.0, "float32"),
+                  (1, 65, 2, 2, 32, 96, 16, 0.0, "float32"))
 # RG-LRU cases: B, S, C, dtype
 RG_MAIN = (1, 4096, 4096, "float32")       # RG-9B forward, one sequence
 RG_CASES = (RG_MAIN, (2, 1000, 512, "bfloat16"), (3, 257, 999, "float32"),
@@ -655,6 +754,34 @@ def phase_lm_kernels() -> dict:
                                  f"(max abs err {_max_abs_err(got, want)})")
         log(f"[3 kernels] rg_lru {case}: bit-equal to plain")
 
+    for i, (B, S, H, K, Dh, Dv, W, cap, dt) in enumerate(FLASH_DV_CASES):
+        g = torch.Generator(device="cuda").manual_seed(150 + i)
+        q, k, v = (torch.randn((B, S, n, d), generator=g, device="cuda")
+                   .to(getattr(torch, dt))
+                   for n, d in ((H, Dh), (K, Dh), (K, Dv)))
+        got = fa.flash_attention_fwd(q, k, v, causal=True, window=W,
+                                     softcap=cap)
+        want = far.mha_reference(q, k, v, causal=True, window=W, softcap=cap)
+        torch.cuda.synchronize()
+        e = _max_abs_err(got.float(), want.float())
+        if got.shape != (B, S, H, Dv) or got.dtype != want.dtype \
+                or e > TOL_FLASH[dt]:
+            raise AssertionError(f"flash_attention Dh {Dh} Dv {Dv} {dt}: "
+                                 f"{tuple(got.shape)}, max abs err {e}")
+        err["flash_attention"] = max(err["flash_attention"], e)
+        log(f"[3 kernels] flash_attention Dh {Dh}, Dv {Dv}, {dt}: max abs "
+            f"err {e:.3e}")
+    for i, (dta, dtb) in enumerate((("bfloat16", "float32"),
+                                    ("float32", "bfloat16"))):
+        a, _ = _rg_inputs((2, 1000, 512, dta), 260 + i)
+        _, b = _rg_inputs((2, 1000, 512, dtb), 260 + i)
+        got = rg.rg_lru_fwd(a, b)
+        want = rgr.rg_lru_reference(a, b)
+        torch.cuda.synchronize()
+        if not _bits_equal(got, want):
+            raise AssertionError(f"rg_lru a {dta}, b {dtb}: kernel != plain")
+        log(f"[3 kernels] rg_lru a {dta}, b {dtb}: bit-equal to plain")
+
     timing = {"flash_attention": _flash_timing(FLASH_MAIN, iters=20,
                                                plain_iters=5)}
     prefill = _flash_timing(FLASH_PREFILL, iters=5, plain_iters=1)
@@ -809,6 +936,26 @@ def phase_ssd_kernels(fault_libs) -> dict:
         log(f"[3 kernels] ssd_scan {case}: error y {errs[0]:.3e}, h_last "
             f"{errs[1]:.3e}")
         del args, got, want
+    # x, B and C in mixed dtypes: `ops.ssd` takes the fp32 route and
+    # rounds y to x's dtype
+    for i, (dx, db, dc) in enumerate((("bfloat16", "float32", "float32"),
+                                      ("float32", "bfloat16", "bfloat16"),
+                                      ("bfloat16", "bfloat16", "float32"))):
+        case = (2, 256, 8, 64, 128, 64, 2, dx)
+        x, dts, A, Bg, Cg = _ssd_inputs((*case[:7], "float32"), 350 + i)
+        x, Bg, Cg = (v.to(getattr(torch, d))
+                     for v, d in ((x, dx), (Bg, db), (Cg, dc)))
+        got = ssd_ops.ssd(x, dts, A, Bg, Cg, chunk=case[5])
+        want = ssd_ops.ssd_plain(x, dts, A, Bg, Cg)
+        torch.cuda.synchronize()
+        errs = _ssd_errors(got, want, case)
+        if not _ssd_passes(case, errs):
+            raise AssertionError(f"ssd_scan x {dx}, B {db}, C {dc}: y, "
+                                 f"h_last error {errs}")
+        err = max(err, max(errs))
+        log(f"[3 kernels] ssd_scan x {dx}, B {db}, C {dc} (the fp32 route): "
+            f"error y {errs[0]:.3e}, h_last {errs[1]:.3e}")
+        del x, dts, A, Bg, Cg, got, want
     try:
         ssd.ssd_fwd(*_ssd_inputs((1, 48, 2, 8, 4, 0, 1, "float32"), 0),
                     chunk=32)
@@ -889,21 +1036,60 @@ def phase_ssd_kernels(fault_libs) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4: the DAS pipeline at full size
 # ---------------------------------------------------------------------------
+def _eager_vs_graph() -> dict:
+    """One oracle-sized sweep (ETF over 40 mixes x 14 rates, 60 frames) in
+    turns: eager, graph, graph, eager, each a host clock around the sweep
+    and its copy to the host. Returns ms per super-step of each run, and
+    fails unless the two give the same results bit for bit and the graph
+    is the faster in both pairs."""
+    import numpy as np
+    from repro_torch.core import simulator as sim, workloads
+    suite = workloads.default_suite(n_instances=60)
+    stacked = suite.build_many([(m, r) for m in range(40) for r in range(14)])
+    params = sim.make_params(device="cuda")
+    runs, results = [], {}
+    for kind in ("eager", "graph", "graph", "eager"):
+        simulate = (sim._simulate_eager if kind == "eager"
+                    else sim.simulate_batch)
+        tel = []
+        t0 = time.perf_counter()
+        res = sim.to_numpy(sim._run_batch(simulate, sim.MODE_ETF, stacked,
+                                          params, device="cuda",
+                                          telemetry=tel))
+        wall = time.perf_counter() - t0
+        steps = sum(x["steps"] for x in tel)
+        runs.append((kind, wall * 1e3 / steps, steps))
+        results.setdefault(kind, res)
+    for f in sim.SimResult._fields:
+        a, b = getattr(results["graph"], f), getattr(results["eager"], f)
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"ETF sweep {f}: graph != eager")
+    eager = [ms for k, ms, _ in runs if k == "eager"]
+    graph = [ms for k, ms, _ in runs if k == "graph"]
+    log(f"[4 das] one oracle-sized ETF sweep ({runs[0][2]} super-steps), in "
+        f"turns: " + ", ".join(f"{k} {ms:.3f}" for k, ms, _ in runs)
+        + " ms/step; graph and eager results bit-equal")
+    if not max(graph) < min(eager):
+        raise AssertionError(f"the captured step is not faster: {runs}")
+    return {"eager_ms_per_step": eager, "graph_ms_per_step": graph,
+            "steps": runs[0][2]}
+
+
 def phase_main() -> dict:
     import torch
     from repro_torch.bench import summary40
     from repro_torch.kernels.etf_ft import ops
     ref = json.loads((ROOT / "benchmarks" / "BENCH_sweep.json")
                      .read_text())["derived"]
+    turns = _eager_vs_graph()
     t0 = time.perf_counter()
     ops.reset_launches()
     out = summary40.run(device="cuda")
     torch.cuda.synchronize()
+    # the simulator counts each graph replay's launches, those it recorded
+    # while capturing the graph (capture itself launches nothing)
     launches = dict(ops.LAUNCHES)
     wall = time.perf_counter() - t0
-    for name in ("etf_ft_search_masked", "push_rows"):
-        if launches[name] <= 0:
-            raise AssertionError(f"main path never launched {name}")
     for sw in out["sweeps"]:
         if sw["stalled"] or sw["unfinished"] or sw["ready_drop"]:
             raise AssertionError(f"unhealthy sweep: {sw}")
@@ -919,13 +1105,25 @@ def phase_main() -> dict:
     for k in summary40.DERIVED[:4]:
         if abs(out[k] - ref[k]) > TOL_DERIVED:
             raise AssertionError(f"{k}: {out[k]} vs {ref[k]}")
+    if out["n_samples"] != {"avg_exec_us": 420168, "edp": 420168}:
+        raise AssertionError(f"oracle samples {out['n_samples']}")
     steps = sum(sw["steps"] for sw in out["sweeps"])
     sweep_s = sum(sw["wall_s"] for sw in out["sweeps"])
+    # one avail_rows a super-step (the completion phase), one masked search
+    # a super-step in every mode but LUT, nothing else of the library
+    want = {"avail_rows": steps,
+            "etf_ft_search_masked": sum(sw["steps"] for sw in out["sweeps"]
+                                        if sw["mode"] != "LUT"),
+            "push_rows": 0, "etf_ft_search": 0}
+    if steps != SUMMARY40_STEPS or launches != want:
+        raise AssertionError(f"{steps} super-steps (expected "
+                             f"{SUMMARY40_STEPS}), launches {launches}, "
+                             f"expected {want}")
     log(f"[4 das] oracle samples {out['n_samples']} (reference 420168); "
         f"{out['n_cells']} cells; launches {launches}; "
         f"{steps} super-steps in {sweep_s:.2f}s of sweeps = "
         f"{sweep_s * 1e3 / steps:.3f} ms/step; pipeline {wall:.1f}s")
-    return {"launches": launches, "out": out}
+    return {"launches": launches, "out": out, "turns": turns}
 
 
 # ---------------------------------------------------------------------------
@@ -954,6 +1152,15 @@ def phase_cross(trees: dict) -> None:
                     if mode == sim.MODE_DAS else None)
             res[dev] = sim.to_numpy(sim.run_batch(mode, stacked, tree=tree,
                                                   device=dev))
+            if dev == "cuda":   # the card's eager loop: the same kernels
+                eager = sim.to_numpy(sim._run_batch(
+                    sim._simulate_eager, mode, stacked, tree=tree,
+                    device=dev))
+        for f in sim.SimResult._fields:
+            a, b = getattr(res["cuda"], f), getattr(eager, f)
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                raise AssertionError(f"{sim.MODE_NAMES[mode]} {f}: card "
+                                     "graph != card eager")
         for f in EXACT_FIELDS:
             a, b = getattr(res["cuda"], f), getattr(res["cpu"], f)
             if a.dtype != b.dtype or not np.array_equal(a, b,
@@ -969,6 +1176,7 @@ def phase_cross(trees: dict) -> None:
                 raise AssertionError(f"{sim.MODE_NAMES[mode]} {f}: rel "
                                      f"{rel.max():.2e} > {TOL_AGG}")
     log(f"[5 das-cross] {len(cells)} cells x LUT/ETF/DAS at 60 instances: "
+        f"every field bit-equal card graph vs card eager; "
         f"schedules bit-equal card vs CPU, float aggregates within "
         f"{worst:.2e} relative ({time.perf_counter() - t0:.1f}s)")
 
@@ -1199,6 +1407,7 @@ KERNELS = (  # name, source, TPU kernel replaced, path
     ("etf_ft_search", ETF_SRC, "src/repro/kernels/etf_ft/kernel.py:72",
      "das"),
     ("push_rows", ETF_SRC, "src/repro/kernels/etf_ft/kernel.py:181", "das"),
+    ("avail_rows", ETF_SRC, "src/repro/kernels/etf_ft/kernel.py:181", "das"),
     ("flash_attention",
      "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention/kernel.py:84", "lm"),

@@ -63,6 +63,7 @@ class Bench:
         wall = time.perf_counter() - t0
         self.sweeps.append({
             "label": label or sim.MODE_NAMES[mode],
+            "mode": sim.MODE_NAMES[mode],
             "scenarios": int(res.n_done.shape[0]),
             "wall_s": wall,
             "steps": sum(t["steps"] for t in tel),

@@ -1,14 +1,17 @@
-"""Where a super-step's time goes on the GPU.
+"""Where a super-step's time goes on the GPU, eager and captured.
 
     python -m repro_torch.bench.profile_sweep [--mode ETF] [--steps 64]
 
 Builds one oracle-sized sweep (40 mixes x 14 rates, 60 frames per
-workload), runs 32 super-steps of the engine to warm up, then traces
-`--steps` more with `torch.profiler` and prints one JSON line: wall and
-device-busy milliseconds per super-step, the device's idle share, device
-kernels and host-side operator calls per super-step, and the kernels
-that take most device time. Wall time is taken around the traced steps,
-which end in a synchronize, so it includes the profiler's own cost.
+workload) and runs one block of `sim.POLL_EVERY` super-steps eagerly to
+warm up. Then it traces `--steps` eager super-steps with `torch.profiler`,
+records one block in a CUDA graph as the simulator does, and traces
+`--steps` more as replays of it (`--steps` a multiple of `POLL_EVERY`).
+It prints one JSON line with both sets of numbers: wall and device-busy
+milliseconds per super-step, the device's idle share, device kernels and
+host-side operator calls per super-step, and the kernels that take most
+device time. Wall time is taken around the traced steps, which end in a
+synchronize, so it includes the profiler's own cost.
 """
 from __future__ import annotations
 
@@ -31,42 +34,17 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-WARM_STEPS = 32
-
-
-def run(device="cuda", mode: int = sim.MODE_ETF, n_instances: int = 60,
-        steps: int = 64) -> dict:
-    dev = resolve(device)
-    suite = workloads.default_suite(n_instances=n_instances)
-    cells = [(m, r) for m in range(suite.mixes.shape[0])
-             for r in range(len(suite.rates))]
-    params = sim.make_params(device=dev)
-    wl = sim._engine_workload(suite.build_many(cells), dev)
-    ctx = sim._make_ctx(params, wl)
-    tree = sim.DTree(*[x.expand(ctx.S, *x.shape)
-                       for x in sim.always_fast_tree(dev)])
-    thr = torch.full((ctx.S,), 1e9, device=dev)
-    s = sim._init_state(ctx, wl)
-    run_all = torch.ones(ctx.S, dtype=torch.bool, device=dev)
-
-    def step(st):
-        running = (st.n_done < wl.n_tasks) & run_all
-        return sim._masked_step(ctx, mode, params, st, wl, tree, thr,
-                                running)[0]
-
-    for _ in range(WARM_STEPS):
-        s = step(s)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    acts = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    with profile(activities=acts) as prof:
+def _traced(fn, n_blocks: int) -> dict:
+    """Trace `n_blocks` calls of `fn` (one block of super-steps each)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            s = step(s)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
+        for _ in range(n_blocks):
+            fn()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    steps = n_blocks * sim.POLL_EVERY
     evts = prof.key_averages()
     gpu = [e for e in evts if _device_us(e) > 0 and
            str(getattr(e, "device_type", "")).endswith("CUDA")]
@@ -74,9 +52,7 @@ def run(device="cuda", mode: int = sim.MODE_ETF, n_instances: int = 60,
     ops = [e for e in evts if e.key.startswith("aten::")]
     top = sorted(gpu, key=_device_us, reverse=True)[:10]
     return {
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
-        "mode": sim.MODE_NAMES[mode], "lanes": ctx.S, "steps": steps,
+        "steps": steps,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
@@ -87,6 +63,46 @@ def run(device="cuda", mode: int = sim.MODE_ETF, n_instances: int = 60,
                          "device_us_per_step": _device_us(e) / steps}
                         for e in top],
     }
+
+
+def run(device="cuda", mode: int = sim.MODE_ETF, n_instances: int = 60,
+        steps: int = 64) -> dict:
+    dev = resolve(device)
+    if dev.type != "cuda":
+        raise ValueError("profile_sweep measures the GPU; it has no CPU run")
+    if steps <= 0 or steps % sim.POLL_EVERY:
+        raise ValueError(f"--steps must be a positive multiple of "
+                         f"{sim.POLL_EVERY}, got {steps}")
+    suite = workloads.default_suite(n_instances=n_instances)
+    cells = [(m, r) for m in range(suite.mixes.shape[0])
+             for r in range(len(suite.rates))]
+    params = sim.make_params(device=dev)
+    wl = sim._engine_workload(suite.build_many(cells), dev)
+    ctx = sim._make_ctx(params, wl)
+    tree = sim.DTree(*[x.expand(ctx.S, *x.shape)
+                       for x in sim.always_fast_tree(dev)])
+    thr = torch.full((ctx.S,), 1e9, device=dev)
+    max_iters = 3 * ctx.T + ctx.I + 64
+    state = {"s": sim._init_state(ctx, wl),
+             "it": torch.zeros(ctx.S, dtype=torch.int64, device=dev)}
+
+    def block(st, it):
+        return sim._block(ctx, mode, params, st, wl, tree, thr, it,
+                          max_iters)
+
+    def eager():
+        state["s"], state["it"] = block(state["s"], state["it"])
+
+    eager()                                   # warm-up
+    n_blocks = steps // sim.POLL_EVERY
+    out = {"device": torch.cuda.get_device_name(dev),
+           "mode": sim.MODE_NAMES[mode], "lanes": ctx.S,
+           "eager": _traced(eager, n_blocks)}
+    replay = sim._capture(block, state["s"], state["it"])
+    out["graph"] = _traced(replay, n_blocks)
+    out["running_lanes_after"] = int(sim._running(
+        wl, state["s"], state["it"], max_iters).sum())
+    return out
 
 
 def main() -> None:

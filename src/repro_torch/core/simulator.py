@@ -27,13 +27,19 @@ Modes
 Engine
 ------
 There is one engine: the reference's masked super-step
-(`_masked_step`) with its scenario axis `[S]` written out, driven by a
-Python loop. Each super-step runs the four phases with gates re-derived
-after each phase, so it retires the same event sequence as the
-reference's one-event-per-iteration loop, and `n_iters` still counts
-events. `run` is the engine with S = 1; `run_batch` cuts a sweep into
-fixed-shape chunks. Finished lanes are frozen by the `run` gate, so the
-loop polls `any(running)` (a host sync) only every `POLL_EVERY` steps.
+(`_masked_step`) with its scenario axis `[S]` written out. Each
+super-step runs the four phases with gates re-derived after each phase,
+so it retires the same event sequence as the reference's
+one-event-per-iteration loop, and `n_iters` still counts events. `run`
+is the engine with S = 1; `run_batch` cuts a sweep into fixed-shape
+chunks. The step has no host sync: finished lanes are frozen by the
+`run` gate, and the loop polls `any(running)` only before each block of
+`POLL_EVERY` super-steps. On the CPU every block runs eagerly. On a CUDA
+device the first block runs eagerly (the warm-up); from the second on,
+each block replays one CUDA graph recorded over the state's buffers, so
+a block costs one graph launch of host time. The results are bit-equal
+to the eager loop's (`_simulate_eager`), and the decision kernels'
+`LAUNCHES` count each replay.
 
 Every per-lane buffer that takes gated row writes is stored flat, as
 `[S * N + 1, ...]`: lane s owns rows `s*N .. s*N + N - 1`, and the last
@@ -43,12 +49,13 @@ an out-of-bounds `mode="drop"` scatter). `_lanes` gives the contiguous
 are replaced.
 
 The two decision kernels (`kernels/etf_ft`) run on every decide and
-every completion phase: on a CUDA device the hand-written kernels, on
-the CPU their plain versions. All float operations keep the reference's
-order. The one place where XLA on the CPU fuses a multiply-add that sets
-the schedule, the ETF latency polynomial, is a table
-(`soc.ETF_LAT_TABLE`). The energy accumulators are fused by XLA too;
-they do not feed the schedule, and agree with the reference to a
+every completion phase: the masked ETF search, and the push-time rows
+gathered from the state in one call; on a CUDA device the hand-written
+kernels, on the CPU their plain versions. All float operations keep the
+reference's order. The one place where XLA on the CPU fuses a
+multiply-add that sets the schedule, the ETF latency polynomial, is a
+table (`soc.ETF_LAT_TABLE`). The energy accumulators are fused by XLA
+too; they do not feed the schedule, and agree with the reference to a
 relative 1e-6.
 """
 from __future__ import annotations
@@ -407,25 +414,14 @@ FEAT_NAMES = (
 # ---------------------------------------------------------------------------
 # scheduler decision helpers
 # ---------------------------------------------------------------------------
-def _avail_rows(ctx: _Ctx, p: SimParams, wl: FlatWorkload, s: SimState,
+def _avail_rows(p: SimParams, wl: FlatWorkload, s: SimState,
                 tasks: torch.Tensor, bases: torch.Tensor) -> torch.Tensor:
     """[S, K, P] availability (incl. NoC transfer from pred clusters),
-    through the push-rows kernel. Evaluated once per task at push time:
-    a task enters the ready queue only when every predecessor has
-    finished, so the row is constant from then on."""
-    S = ctx.S
-    K = tasks.shape[1]
-    preds = _take(ctx, wl.preds, tasks)                     # [S, K, MP]
-    mp = preds.shape[2]
-    pv = ctx.ar_mp < _take(ctx, wl.n_preds, tasks)[..., None]
-    pidx = preds.clamp_min(0).reshape(S, K * mp)
-    pfin = torch.where(
-        pv, _lanes(s.finish, S).gather(1, pidx).view(S, K, mp), _NEG)
-    pkb = torch.where(pv, wl.out_kb.gather(1, pidx).view(S, K, mp), 0.0)
-    pcl = p.pe_cluster[
-        _lanes(s.pe_of, S).gather(1, pidx).clamp_min(0)].view(S, K, mp)
-    return _kops.push_rows(pfin, pkb * p.us_per_kb, pcl, pv, p.pe_cluster,
-                           bases, ctx.C)
+    gathered from the state by the avail-rows kernel. Evaluated once per
+    task at push time: a task enters the ready queue only when every
+    predecessor has finished, so the row is constant from then on."""
+    return _kops.avail_rows(tasks, s.finish, s.pe_of, wl.preds, wl.n_preds,
+                            wl.out_kb, p.us_per_kb, p.pe_cluster, bases)
 
 
 def _etf_choice(ctx: _Ctx, s: SimState):
@@ -473,7 +469,7 @@ def _push_ready_many(ctx: _Ctx, p: SimParams, wl: FlatWorkload,
     """
     t = tasks.clamp_min(0)                                # [S, K]
     if rows_avail is None:
-        rows_avail = _avail_rows(ctx, p, wl, s, t, bases)  # [S, K, P]
+        rows_avail = _avail_rows(p, wl, s, t, bases)      # [S, K, P]
     rows_exec = p.exec_pe[_take(ctx, wl.task_type, t)]    # [S, K, P]
     want = do_push.long()
     before = s.ready_cnt[:, None] + want.cumsum(1) - want
@@ -795,35 +791,109 @@ def _engine_workload(wl: FlatWorkload, device) -> FlatWorkload:
                           for x in wl])
 
 
+def _running(wl: FlatWorkload, s: SimState, it: torch.Tensor,
+             max_iters: int) -> torch.Tensor:
+    """[S] bool: lanes with work left, not stalled and within budget."""
+    return (s.n_done < wl.n_tasks) & ~s.stalled & (it < max_iters)
+
+
+def _block(ctx: _Ctx, mode: int, p: SimParams, s: SimState,
+           wl: FlatWorkload, tree: DTree, rate_threshold: torch.Tensor,
+           it: torch.Tensor, max_iters: int):
+    """`POLL_EVERY` super-steps, each gated by `_running`; returns (s, it).
+    No host sync: a finished lane is frozen by its gate."""
+    for _ in range(POLL_EVERY):
+        s, ev = _masked_step(ctx, mode, p, s, wl, tree, rate_threshold,
+                             _running(wl, s, it, max_iters))
+        it = it + ev
+    return s, it
+
+
+def _capture(block, s: SimState, it: torch.Tensor):
+    """Record `block(s, it)` in one CUDA graph whose result is copied back
+    into `s` and `it`, which become the graph's static buffers (the flat
+    buffers are updated in place already; the per-lane scalars that the
+    block rebinds are copied). Returns `replay()`, which runs the block
+    once more from the buffers' current values.
+
+    Capture launches nothing, so the decision kernels' launches recorded
+    during capture are taken out of `LAUNCHES` and added back once per
+    replay. A capture that fails raises; nothing falls back to eager."""
+    counts = _kops.LAUNCHES
+    before = dict(counts)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out, out_it = block(s, it)
+        for buf, new in zip(s, out):
+            if new is not buf:
+                buf.copy_(new)
+        it.copy_(out_it)
+    per_replay = {k: counts[k] - n for k, n in before.items()}
+    counts.update(before)
+
+    def replay() -> None:
+        g.replay()
+        for k, n in per_replay.items():
+            counts[k] += n
+
+    return replay
+
+
+def _simulate(mode: int, params: SimParams, wls: FlatWorkload, tree: DTree,
+              rate_threshold: torch.Tensor, telemetry: list | None,
+              graph: bool) -> SimResult:
+    wl = _engine_workload(wls, params.exec_pe.device)
+    ctx = _make_ctx(params, wl)
+    max_iters = 3 * ctx.T + ctx.I + 64
+    s = _init_state(ctx, wl)
+    it = torch.zeros(ctx.S, dtype=torch.int64, device=ctx.lane.device)
+
+    def block(st, i):
+        return _block(ctx, mode, params, st, wl, tree, rate_threshold, i,
+                      max_iters)
+
+    # poll any(running) (a host sync) before every block of POLL_EVERY;
+    # with `graph`, the first block runs eagerly (the warm-up that loads
+    # every library) and the next one is captured, then replayed
+    steps, replay = 0, None
+    while bool(_running(wl, s, it, max_iters).any()):
+        if graph and steps and replay is None:
+            replay = _capture(block, s, it)
+        if replay is None:
+            s, it = block(s, it)
+        else:
+            replay()
+        steps += POLL_EVERY
+    res = _finalize(ctx, wl, s, it, max_iters)
+    if telemetry is not None:
+        telemetry.append({"lanes": ctx.S, "steps": steps,
+                          "events": int(it.sum())})
+    return res
+
+
 def simulate_batch(mode: int, params: SimParams, wls: FlatWorkload,
                    tree: DTree, rate_threshold: torch.Tensor,
                    telemetry: list | None = None) -> SimResult:
     """Run S scenarios to completion in one batch.
 
     `wls` is a stacked host workload (`workloads.stack_workloads`,
-    leading `[S]` axis); it is moved to the params' device. `tree` fields are `[3]/[3]/[4]` or `[S, ...]`;
-    `rate_threshold` is `[S]` f32. When `telemetry` is a list, a record
-    of this call's lanes, super-steps and retired events is appended.
+    leading `[S]` axis); it is moved to the params' device. `tree` fields
+    are `[3]/[3]/[4]` or `[S, ...]`; `rate_threshold` is `[S]` f32. When
+    `telemetry` is a list, a record of this call's lanes, super-steps and
+    retired events is appended. On a CUDA device the first block of
+    super-steps runs eagerly and the rest replay it from a CUDA graph.
     """
-    wl = _engine_workload(wls, params.exec_pe.device)
-    ctx = _make_ctx(params, wl)
-    max_iters = 3 * ctx.T + ctx.I + 64
-    s = _init_state(ctx, wl)
-    it = torch.zeros(ctx.S, dtype=torch.int64, device=ctx.lane.device)
-    steps = 0
-    while True:
-        run = (s.n_done < wl.n_tasks) & ~s.stalled & (it < max_iters)
-        if steps % POLL_EVERY == 0 and not bool(run.any()):
-            break
-        s, ev = _masked_step(ctx, mode, params, s, wl, tree, rate_threshold,
-                             run)
-        it = it + ev
-        steps += 1
-    res = _finalize(ctx, wl, s, it, max_iters)
-    if telemetry is not None:
-        telemetry.append({"lanes": ctx.S, "steps": steps,
-                          "events": int(it.sum())})
-    return res
+    return _simulate(mode, params, wls, tree, rate_threshold, telemetry,
+                     graph=params.exec_pe.device.type == "cuda")
+
+
+def _simulate_eager(mode: int, params: SimParams, wls: FlatWorkload,
+                    tree: DTree, rate_threshold: torch.Tensor,
+                    telemetry: list | None = None) -> SimResult:
+    """`simulate_batch` with every block run eagerly, on any device: the
+    same kernels in the same order, for holding the captured path to it."""
+    return _simulate(mode, params, wls, tree, rate_threshold, telemetry,
+                     graph=False)
 
 
 def result_at(res: SimResult, i: int) -> SimResult:
@@ -860,6 +930,16 @@ def run_batch(mode: int, wls, params: SimParams | None = None,
     chunk has the same shape and per-scenario results do not depend on
     the chunking. Returns a `SimResult` of tensors on `device`.
     """
+    return _run_batch(simulate_batch, mode, wls, params, tree,
+                      rate_threshold, batch_size, plan, device, telemetry)
+
+
+def _run_batch(simulate, mode: int, wls, params: SimParams | None = None,
+               tree: DTree | None = None, rate_threshold=1e9,
+               batch_size: int | None = None, plan=None, device="cuda",
+               telemetry: list | None = None) -> SimResult:
+    """`run_batch` with each chunk run by `simulate` (`simulate_batch`, or
+    `_simulate_eager` to hold the captured path to the eager one)."""
     if plan is not None:
         raise NotImplementedError(
             "fault plans are not ported yet (ROADMAP queue 1: the fault "
@@ -893,7 +973,7 @@ def run_batch(mode: int, wls, params: SimParams | None = None,
         ids = pad_idx[lo:lo + B]
         tids = torch.as_tensor(ids, device=dev)
         part = FlatWorkload(*[np.asarray(x)[ids] for x in stacked])
-        chunks.append(simulate_batch(
+        chunks.append(simulate(
             mode, params, part, DTree(*[x[tids] for x in tree]), thr[tids],
             telemetry=telemetry))
     if len(chunks) == 1:

@@ -26,7 +26,8 @@ NVCC_FLAGS = _build.BASE_FLAGS + ("-fmad=false",) + _build.LINK_FLAGS
 
 #: launches per kernel since the last reset (one per wrapper call that
 #: reached the GPU; the plain versions never count)
-LAUNCHES = {"etf_ft_search_masked": 0, "etf_ft_search": 0, "push_rows": 0}
+LAUNCHES = {"etf_ft_search_masked": 0, "etf_ft_search": 0, "push_rows": 0,
+            "avail_rows": 0}
 
 
 def reset_launches() -> None:
@@ -39,8 +40,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.etf_ft_search_masked_launch.argtypes = [P] * 10 + [I, I, I, P]
     lib.etf_ft_search_launch.argtypes = [P] * 7 + [I, I, I, P]
     lib.push_rows_launch.argtypes = [P] * 7 + [I, I, I, P]
+    lib.avail_rows_launch.argtypes = [P] * 10 + [I] * 5 + [P]
     for fn in (lib.etf_ft_search_masked_launch, lib.etf_ft_search_launch,
-               lib.push_rows_launch):
+               lib.push_rows_launch, lib.avail_rows_launch):
         fn.restype = ctypes.c_int
 
 
@@ -126,5 +128,37 @@ def push_rows(pfin, cost, pcl, pv, pe_cluster, bases):
         _launch("push_rows", _lib().push_rows_launch,
                 _ptr(pfin), _ptr(cost), _ptr(pcl), _ptr(pv),
                 _ptr(pe_cluster), _ptr(bases), _ptr(rows), S * K, MP, P,
+                _stream(dev))
+    return rows
+
+
+def avail_rows(tasks, finish, pe_of, preds, n_preds, out_kb, us_per_kb,
+               pe_cluster, bases):
+    """Push-time availability rows on the GPU, gathered from the
+    simulator's state in one launch: tasks [S, K] i64 (lane-local, in
+    [0, T)), the flat finish [S*T + 1] f32 and pe_of [S*T + 1] i64 buffers,
+    preds [S, T, MP] i64, n_preds [S, T] i64, out_kb [S, T] f32, us_per_kb
+    [] f32, pe_cluster [P] i32, bases [S, K] f32. Returns rows [S, K, P]
+    f32, as `ref.avail_rows_reference`."""
+    S, K = tasks.shape
+    T, MP = preds.shape[1], preds.shape[2]
+    P = pe_cluster.shape[0]
+    dev = tasks.device
+    f32, i64 = torch.float32, torch.int64
+    _check("tasks", tasks, i64, (S, K), dev)
+    _check("finish", finish, f32, (S * T + 1,), dev)
+    _check("pe_of", pe_of, i64, (S * T + 1,), dev)
+    _check("preds", preds, i64, (S, T, MP), dev)
+    _check("n_preds", n_preds, i64, (S, T), dev)
+    _check("out_kb", out_kb, f32, (S, T), dev)
+    _check("us_per_kb", us_per_kb, f32, (), dev)
+    _check("pe_cluster", pe_cluster, torch.int32, (P,), dev)
+    _check("bases", bases, f32, (S, K), dev)
+    rows = torch.empty((S, K, P), dtype=f32, device=dev)
+    if S * K * P:
+        _launch("avail_rows", _lib().avail_rows_launch,
+                _ptr(tasks), _ptr(finish), _ptr(pe_of), _ptr(preds),
+                _ptr(n_preds), _ptr(out_kb), _ptr(us_per_kb),
+                _ptr(pe_cluster), _ptr(bases), _ptr(rows), S, K, T, MP, P,
                 _stream(dev))
     return rows

@@ -52,6 +52,18 @@ def push_rows(pfin, cost, pcl, pv, pe_cluster, bases, n_clusters):
                                    n_clusters)
 
 
+def avail_rows(tasks, finish, pe_of, preds, n_preds, out_kb, us_per_kb,
+               pe_cluster, bases):
+    """Push-time availability rows gathered from the simulator's state
+    (`ref.avail_rows_reference` for the arguments): [S, K, P]. On the GPU
+    one launch does the gathers and the push rows."""
+    args = (tasks, finish, pe_of, preds, n_preds, out_kb, us_per_kb,
+            pe_cluster, bases)
+    if _on_gpu(tasks):
+        return kernel.avail_rows(*args)
+    return ref.avail_rows_reference(*args)
+
+
 def etf_ft(avail, free, exec_t, now):
     """Unmasked search: [B, R, P] -> (ft_min, slot, pe), each [B]."""
     if _on_gpu(avail):

@@ -2,8 +2,9 @@
 
 They mirror `repro/kernels/etf_ft/ref.py` operation for operation, so on
 the CPU the port's schedules match the JAX reference bit for bit, and on
-the GPU each CUDA kernel is held to these functions bit for bit. All
-three take any number of leading batch axes.
+the GPU each CUDA kernel is held to these functions bit for bit. The
+searches and `push_rows_reference` take any number of leading batch
+axes; `avail_rows_reference` takes the simulator's `[S]` lane axis.
 
 The argmin is a first-global-minimum rule written out (minimum value,
 then the smallest flat index holding it), not a reliance on how
@@ -69,7 +70,37 @@ def push_rows_reference(pfin, cost, pcl, pv, pe_cluster, bases,
         bases)."""
     del n_clusters
     cross = pcl.unsqueeze(-1) != pe_cluster            # [..., K, MP, P]
+    # cost * [cross] as XLA computes the reference's `cost * cross`: it
+    # folds a multiply by a converted bool into a select, so a same-cluster
+    # predecessor adds +0.0 whatever its cost (inf x 0 is not NaN there)
     contrib = torch.where(pv.unsqueeze(-1),
-                          pfin.unsqueeze(-1) + cost.unsqueeze(-1) * cross,
+                          pfin.unsqueeze(-1) + torch.where(
+                              cross, cost.unsqueeze(-1), 0.0),
                           float("-inf"))
     return torch.maximum(contrib.amax(dim=-2), bases.unsqueeze(-1))
+
+
+def avail_rows_reference(tasks, finish, pe_of, preds, n_preds, out_kb,
+                         us_per_kb, pe_cluster, bases):
+    """Push-time availability rows gathered from the simulator's state:
+    tasks [S, K] (lane-local, in [0, T)), the flat finish and pe_of
+    buffers [S*T + 1] (lane s at s*T, the spare last row unread), preds
+    [S, T, MP], n_preds [S, T], out_kb [S, T], us_per_kb [], pe_cluster
+    [P], bases [S, K]. Each task's valid predecessors (the first
+    n_preds) give their finish time, out_kb * us_per_kb as the transfer
+    cost and the cluster of their PE; then `push_rows_reference`.
+    Returns [S, K, P]."""
+    S, K = tasks.shape
+    T, mp = preds.shape[1], preds.shape[2]
+    lane = torch.arange(S, device=tasks.device)[:, None]
+    pr = preds[lane, tasks]                                 # [S, K, MP]
+    pv = (torch.arange(mp, device=tasks.device)
+          < n_preds[lane, tasks][..., None])
+    pidx = pr.clamp_min(0).reshape(S, K * mp)
+    pfin = torch.where(pv, finish[:-1].view(S, T).gather(1, pidx)
+                       .view(S, K, mp), float("-inf"))
+    pkb = torch.where(pv, out_kb.gather(1, pidx).view(S, K, mp), 0.0)
+    pcl = pe_cluster[pe_of[:-1].view(S, T).gather(1, pidx)
+                     .clamp_min(0)].view(S, K, mp)
+    return push_rows_reference(pfin, pkb * us_per_kb, pcl, pv, pe_cluster,
+                               bases, None)

@@ -45,32 +45,50 @@ LIBRARY = _build.Library("flash_attention", _SRC, NVCC_FLAGS, _bind,
                          include_dirs=(_build.INCLUDE_DIR,))
 
 
+def common_width(q, k, v):
+    """q/k of width Dh and v of width Dv padded with zero columns to
+    max(Dh, Dv), the one head width the kernel takes: zero columns of q
+    and k add nothing to a score, zero columns of v give zero output
+    columns, which the caller slices off."""
+    D = max(q.shape[-1], v.shape[-1])
+
+    def pad(t):
+        return t if t.shape[-1] == D else torch.nn.functional.pad(
+            t, (0, D - t.shape[-1]))
+
+    return pad(q), pad(k), pad(v)
+
+
 def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """q [B,S,H,Dh], k/v [B,S,K,Dh] on the GPU, fp32 or bf16, H % K == 0,
-    Dh <= 256, any S >= 1 -> [B,S,H,Dh] in q's dtype, as
-    `ref.mha_reference`. bf16 runs on the tensor cores, fp32 on the CUDA
-    cores."""
+    """q [B,S,H,Dh], k [B,S,K,Dh], v [B,S,K,Dv] on the GPU, fp32 or bf16,
+    H % K == 0, Dh and Dv <= 256, any S >= 1 -> [B,S,H,Dv] in q's dtype,
+    as `ref.mha_reference` (scores scaled by 1 / sqrt(Dh)). bf16 runs on
+    the tensor cores, fp32 on the CUDA cores. When Dv differs from Dh the
+    narrower operands are padded to the wider width (`common_width`) and
+    the output is sliced back to Dv."""
     B, S, H, Dh = q.shape
-    K = k.shape[2]
+    K, Dv = k.shape[2], v.shape[3]
     dev = q.device
     dts = (torch.float32, torch.bfloat16)
     _build.check("q", q, dts, (B, S, H, Dh), dev)
     _build.check("k", k, q.dtype, (B, S, K, Dh), dev)
-    _build.check("v", v, q.dtype, (B, S, K, Dh), dev)
+    _build.check("v", v, q.dtype, (B, S, K, Dv), dev)
     if K < 1 or H % K:
         raise ValueError(f"flash_attention: {H} query heads over {K} KV "
                          "heads")
-    if not 1 <= Dh <= MAX_DH:
-        raise ValueError(f"flash_attention: head dim {Dh} not in "
-                         f"[1, {MAX_DH}]")
+    for name, d in (("head", Dh), ("value", Dv)):
+        if not 1 <= d <= MAX_DH:
+            raise ValueError(f"flash_attention: {name} dim {d} not in "
+                             f"[1, {MAX_DH}]")
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
-    o = torch.empty_like(q)
+    qp, kp, vp = common_width(q, k, v)
+    o = torch.empty_like(qp)
     if B * S:
         _build.launch(
             LAUNCHES, "flash_attention", LIBRARY.load().flash_attention_launch,
-            _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
-            B, S, H, K, Dh, int(bool(causal)), int(window),
+            _build.ptr(qp), _build.ptr(kp), _build.ptr(vp), _build.ptr(o),
+            B, S, H, K, qp.shape[-1], int(bool(causal)), int(window),
             float(softcap), float(math.sqrt(Dh)),
             int(q.dtype == torch.bfloat16), _build.stream(dev))
-    return o
+    return o if Dv == o.shape[-1] else o[..., :Dv].contiguous()

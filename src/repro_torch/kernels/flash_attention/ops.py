@@ -15,7 +15,8 @@ reset_launches = kernel.reset_launches
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """q [B,S,H,Dh], k/v [B,S,K,Dh] -> [B,S,H,Dh] in q's dtype."""
+    """q [B,S,H,Dh], k [B,S,K,Dh], v [B,S,K,Dv] -> [B,S,H,Dv] in q's
+    dtype."""
     if q.device.type == "cuda":
         return kernel.flash_attention_fwd(
             q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,

@@ -37,15 +37,19 @@ LIBRARY = _build.Library("rg_lru", _SRC, NVCC_FLAGS, _bind)
 
 
 def rg_lru_fwd(a, b):
-    """a, b [B, S, C] on the GPU, both fp32 or both bf16 -> h [B, S, C] in
-    a's dtype, h_t = a_t h_{t-1} + b_t from h = 0, bit-equal to
-    `ref.rg_lru_reference`."""
+    """a, b [B, S, C] on the GPU, each fp32 or bf16 -> h [B, S, C] in a's
+    dtype, h_t = a_t h_{t-1} + b_t from h = 0 in fp32, bit-equal to
+    `ref.rg_lru_reference`. When a and b differ in dtype both are taken
+    to fp32 (as the reference casts each) and h is rounded to a's dtype."""
     B, S, C = a.shape
     dev = a.device
-    _build.check("a", a, (torch.float32, torch.bfloat16), (B, S, C), dev)
-    _build.check("b", b, a.dtype, (B, S, C), dev)
+    dts = (torch.float32, torch.bfloat16)
+    _build.check("a", a, dts, (B, S, C), dev)
+    _build.check("b", b, dts, (B, S, C), dev)
     if B > 65535:
         raise ValueError(f"rg_lru: batch {B} > 65535")
+    if b.dtype != a.dtype:
+        return rg_lru_fwd(a.float(), b.float()).to(a.dtype)
     y = torch.empty_like(a)
     if B * S * C:
         _build.launch(LAUNCHES, "rg_lru", LIBRARY.load().rg_lru_launch,

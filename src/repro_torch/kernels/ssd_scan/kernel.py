@@ -52,7 +52,8 @@ def check_chunk(S: int, chunk: int) -> None:
 
 def ssd_fwd(x, dt, A, Bg, Cg, *, chunk=128):
     """x [B,S,H,P] fp32 or bf16, dt [B,S,H] fp32, A [H] fp32, Bg/Cg
-    [B,S,G,N] in x's dtype (one projection makes all three in the model)
+    [B,S,G,N] in x's dtype (one projection makes all three in the model;
+    `ops.ssd` takes mixed dtypes to the fp32 route)
     with G dividing H, on the GPU; 1 <= chunk <= 128
     divides S, N <= 128. Returns (y [B,S,H,P] in x's dtype, h_last
     [B,H,N,P] fp32), as `ref.ssd_reference` with B and C repeated to

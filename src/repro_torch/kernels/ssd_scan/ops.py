@@ -16,8 +16,14 @@ reset_launches = kernel.reset_launches
 
 def ssd(xh, dth, A, Bg, Cg, *, chunk=128):
     """xh [B,S,H,P], dth [B,S,H], A [H], Bg/Cg [B,S,G,N] with H % G == 0.
-    Returns (y [B,S,H,P] in xh's dtype, h_last [B,H,N,P] fp32)."""
+    Returns (y [B,S,H,P] in xh's dtype, h_last [B,H,N,P] fp32). On the
+    GPU, x, B and C of mixed dtypes all take the fp32 route (the
+    reference casts each to fp32; none is rounded to bf16)."""
     if xh.device.type == "cuda":
+        if not xh.dtype == Bg.dtype == Cg.dtype:
+            y, h = ssd(xh.float(), dth, A, Bg.float(), Cg.float(),
+                       chunk=chunk)
+            return y.to(xh.dtype), h
         return kernel.ssd_fwd(xh.contiguous(), dth.float().contiguous(),
                               A.float().contiguous(), Bg.contiguous(),
                               Cg.contiguous(), chunk=chunk)
