@@ -361,8 +361,8 @@ def rows_case(S, T=1200, K=4, MP=4, seed=0, nan=False):
 
 def _rows_work(case) -> tuple[int, int]:
     """(bytes, operations) that `avail_rows` needs on these inputs: each
-    task, its predecessor count and row, each valid predecessor's finish
-    time, size, PE and cluster, the clusters, bases and rows, read or
+    task and its predecessor count, each valid predecessor's index,
+    finish time, size and PE, the cluster table, bases and rows, read or
     written once; a multiply per valid predecessor, then per output and
     predecessor a multiply, an add and a max, and the max with the base."""
     import torch
@@ -372,8 +372,8 @@ def _rows_work(case) -> tuple[int, int]:
     P = pecl.shape[0]
     lane = torch.arange(S, device=tasks.device)[:, None]
     valid = int(n_preds[lane, tasks].sum())
-    nbytes = (_nbytes(tasks, upk, pecl, bases) + S * K * (8 + MP * 8)
-              + valid * (4 + 4 + 8 + 4) + S * K * P * 4)
+    nbytes = (_nbytes(tasks, upk, pecl, bases) + S * K * 8
+              + valid * (8 + 4 + 4 + 8) + S * K * P * 4)
     return nbytes, valid + S * K * P * (3 * MP + 1)
 
 
@@ -474,7 +474,14 @@ def phase_kernels() -> dict:
     for x in case[:3]:
         buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
         shifted.append(buf[1:].view(x.shape).copy_(x))
+    before = dict(kernel.LAUNCHES)
     check_search(tuple(shifted) + case[3:], "misaligned")
+    routed = {k: kernel.LAUNCHES[k] - n for k, n in before.items()
+              if kernel.LAUNCHES[k] != n}
+    if routed != {"etf_ft_search_masked_generic": 2,
+                  "etf_ft_search_generic": 1}:
+        raise AssertionError(f"misaligned inputs launched {routed}, "
+                             "expected only the generic kernels")
     n_cases += 3
     for S in (1, 7, MAIN_S, 4096):
         for seed, (ties, special) in enumerate(
@@ -518,6 +525,8 @@ def phase_kernels() -> dict:
     pc = push_case(MAIN_S, seed=4)
     rc = rows_case(MAIN_S, seed=5)
     rows_bytes, rows_ops = _rows_work(rc)
+    if kernel._search_route("", sc[0], sc[2])[1] != 1:
+        raise AssertionError("timing inputs must take the fixed search")
     S, R, P = sc[0].shape
     cells = S * R * P
     timing = {}
@@ -1109,12 +1118,14 @@ def phase_main() -> dict:
         raise AssertionError(f"oracle samples {out['n_samples']}")
     steps = sum(sw["steps"] for sw in out["sweeps"])
     sweep_s = sum(sw["wall_s"] for sw in out["sweeps"])
-    # one avail_rows a super-step (the completion phase), one masked search
-    # a super-step in every mode but LUT, nothing else of the library
+    # one avail_rows a super-step (the completion phase), one fixed masked
+    # search a super-step in every mode but LUT, nothing else of the library
     want = {"avail_rows": steps,
             "etf_ft_search_masked": sum(sw["steps"] for sw in out["sweeps"]
                                         if sw["mode"] != "LUT"),
-            "push_rows": 0, "etf_ft_search": 0}
+            "push_rows": 0, "etf_ft_search": 0,
+            # the simulator's search inputs are aligned [16, 19] matrices
+            "etf_ft_search_masked_generic": 0, "etf_ft_search_generic": 0}
     if steps != SUMMARY40_STEPS or launches != want:
         raise AssertionError(f"{steps} super-steps (expected "
                              f"{SUMMARY40_STEPS}), launches {launches}, "

@@ -303,26 +303,30 @@ constexpr int kRowThreads = 128;
 constexpr int kPathR = 16;   // the simulator's R_MAX (soc.ETF_LAT_MAX_N)
 constexpr int kPathP = 19;   // the default SoC's PEs
 
-// The fixed kernel at the path's shape when both matrices are 16-byte
-// aligned, else the generic one.
+// `fixed` picks the kernel, as the caller decided and counted it: the
+// fixed one (the path's shape, both matrices 16-byte aligned, else
+// cudaErrorInvalidValue) or the generic one.
 template <bool MASKED>
 int launch_search(const float* avail, const float* free_t, const float* exec_t,
                   const float* now, const uint8_t* slot_ok,
                   const uint8_t* pe_alive, float* ft_min, int32_t* slot,
                   int32_t* pe, uint8_t* feasible, int S, int R, int P,
-                  cudaStream_t stream) {
+                  int fixed, cudaStream_t stream) {
     const int warps = kSearchThreads / 32;
     const int blocks = (S + warps - 1) / warps;
     const bool aligned = (((uintptr_t)avail | (uintptr_t)exec_t) & 15) == 0;
-    if (R == kPathR && P == kPathP && aligned)
+    if (fixed) {
+        if (R != kPathR || P != kPathP || !aligned)
+            return (int)cudaErrorInvalidValue;
         etf_search_fixed<kPathR, kPathP, MASKED>
             <<<blocks, kSearchThreads, 0, stream>>>(
                 avail, free_t, exec_t, now, slot_ok, pe_alive, ft_min, slot,
                 pe, feasible, S);
-    else
+    } else {
         etf_search_kernel<MASKED><<<blocks, kSearchThreads, 0, stream>>>(
             avail, free_t, exec_t, now, slot_ok, pe_alive, ft_min, slot, pe,
             feasible, S, R, P);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -332,18 +336,18 @@ extern "C" int etf_ft_search_masked_launch(
         const float* avail, const float* free_t, const float* exec_t,
         const float* now, const uint8_t* slot_ok, const uint8_t* pe_alive,
         float* ft_min, int32_t* slot, int32_t* pe, uint8_t* feasible,
-        int S, int R, int P, void* stream) {
+        int S, int R, int P, int fixed, void* stream) {
     return launch_search<true>(avail, free_t, exec_t, now, slot_ok, pe_alive,
-                               ft_min, slot, pe, feasible, S, R, P,
+                               ft_min, slot, pe, feasible, S, R, P, fixed,
                                (cudaStream_t)stream);
 }
 
 extern "C" int etf_ft_search_launch(
         const float* avail, const float* free_t, const float* exec_t,
         const float* now, float* ft_min, int32_t* slot, int32_t* pe,
-        int S, int R, int P, void* stream) {
+        int S, int R, int P, int fixed, void* stream) {
     return launch_search<false>(avail, free_t, exec_t, now, nullptr, nullptr,
-                                ft_min, slot, pe, nullptr, S, R, P,
+                                ft_min, slot, pe, nullptr, S, R, P, fixed,
                                 (cudaStream_t)stream);
 }
 

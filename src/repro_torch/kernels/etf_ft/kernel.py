@@ -7,7 +7,11 @@ wrapper turns into an exception.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with `torch.empty`, and adds one to `LAUNCHES[name]` when it
-launches. Nothing here runs on the CPU; `ops.py` routes CPU tensors to
+launches. The searches have a kernel of their own at the simulator's
+[R, P] = `FIXED_RP` for 16-byte aligned matrices, counted under the
+search's name; the generic kernel they take elsewhere is counted under
+the name with `_generic` appended, so a path that leaves the fixed
+kernel shows in the counts. Nothing here runs on the CPU; `ops.py` routes CPU tensors to
 the plain versions in `ref.py`.
 """
 from __future__ import annotations
@@ -27,7 +31,11 @@ NVCC_FLAGS = _build.BASE_FLAGS + ("-fmad=false",) + _build.LINK_FLAGS
 #: launches per kernel since the last reset (one per wrapper call that
 #: reached the GPU; the plain versions never count)
 LAUNCHES = {"etf_ft_search_masked": 0, "etf_ft_search": 0, "push_rows": 0,
-            "avail_rows": 0}
+            "avail_rows": 0, "etf_ft_search_masked_generic": 0,
+            "etf_ft_search_generic": 0}
+
+#: the simulator's [R_MAX, PEs] (`soc.ETF_LAT_MAX_N`, the default SoC)
+FIXED_RP = (16, 19)
 
 
 def reset_launches() -> None:
@@ -37,8 +45,8 @@ def reset_launches() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.etf_ft_search_masked_launch.argtypes = [P] * 10 + [I, I, I, P]
-    lib.etf_ft_search_launch.argtypes = [P] * 7 + [I, I, I, P]
+    lib.etf_ft_search_masked_launch.argtypes = [P] * 10 + [I] * 4 + [P]
+    lib.etf_ft_search_launch.argtypes = [P] * 7 + [I] * 4 + [P]
     lib.push_rows_launch.argtypes = [P] * 7 + [I, I, I, P]
     lib.avail_rows_launch.argtypes = [P] * 10 + [I] * 5 + [P]
     for fn in (lib.etf_ft_search_masked_launch, lib.etf_ft_search_launch,
@@ -54,6 +62,13 @@ _lib = LIBRARY.load
 
 def _launch(name: str, fn, *args) -> None:
     _build.launch(LAUNCHES, name, fn, *args)
+
+
+def _search_route(name: str, avail, exec_t) -> tuple[str, int]:
+    """(count name, 1 for the fixed kernel or 0 for the generic one)."""
+    fixed = (tuple(avail.shape[1:]) == FIXED_RP
+             and avail.data_ptr() % 16 == 0 and exec_t.data_ptr() % 16 == 0)
+    return (name, 1) if fixed else (name + "_generic", 0)
 
 
 def etf_ft_search_masked(avail, free, exec_t, now, slot_ok, pe_alive=None):
@@ -79,10 +94,11 @@ def etf_ft_search_masked(avail, free, exec_t, now, slot_ok, pe_alive=None):
     pe = torch.empty(S, dtype=torch.int32, device=dev)
     ok = torch.empty(S, dtype=torch.bool, device=dev)
     if S:
-        _launch("etf_ft_search_masked", _lib().etf_ft_search_masked_launch,
+        name, fixed = _search_route("etf_ft_search_masked", avail, exec_t)
+        _launch(name, _lib().etf_ft_search_masked_launch,
                 _ptr(avail), _ptr(free), _ptr(exec_t), _ptr(now),
                 _ptr(slot_ok), _ptr(pe_alive), _ptr(ft_min), _ptr(slot),
-                _ptr(pe), _ptr(ok), S, R, P, _stream(dev))
+                _ptr(pe), _ptr(ok), S, R, P, fixed, _stream(dev))
     return ft_min, slot, pe, ok
 
 
@@ -103,9 +119,11 @@ def etf_ft_search(avail, free, exec_t, now):
     slot = torch.empty(B, dtype=torch.int32, device=dev)
     pe = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
-        _launch("etf_ft_search", _lib().etf_ft_search_launch,
+        name, fixed = _search_route("etf_ft_search", avail, exec_t)
+        _launch(name, _lib().etf_ft_search_launch,
                 _ptr(avail), _ptr(free), _ptr(exec_t), _ptr(now),
-                _ptr(ft_min), _ptr(slot), _ptr(pe), B, R, P, _stream(dev))
+                _ptr(ft_min), _ptr(slot), _ptr(pe), B, R, P, fixed,
+                _stream(dev))
     return ft_min, slot, pe
 
 
