@@ -18,7 +18,9 @@ three paths through them:
     d_model 4096, vocab 256,000, random weights from a seed): scoring
     4096 tokens, then serving 4 prompts of 4096 tokens with 32 greedy
     decode steps, the served logits checked against scoring; and the
-    model cut to one period (3 layers) in fp32, card against CPU;
+    model cut to one period (3 layers) in fp32, card against CPU, in a
+    forward and in a prefill of two chunks whose second carries the
+    recurrent state;
   * Mamba-2 780M inference at full width and depth (48 SSD layers,
     d_model 1536, vocab 50,280, random weights from a seed): scoring
     4 x 4096 tokens through the SSD kernel and serving 4 prompts of 4096
@@ -27,8 +29,9 @@ three paths through them:
     served logits checked against scoring at 1e-4; and the model cut to 3
     layers in fp32, card against CPU.
 
-Phase 2 also builds three planted faults of the bf16 SSD kernel (copies
-of its source with one step broken), prints the ptxas registers and
+Phase 2 also builds three planted faults of the bf16 SSD kernel and
+three of the RG-LRU scan's TMA ring (copies of their sources with one
+step broken), prints the ptxas registers and
 spills of the libraries built with -Xptxas -v, and fails unless flash
 attention's and the SSD scan's SASS hold wgmma that ptxas did not
 serialise and the bf16 SSD kernel spills nothing. Phase 3 holds the
@@ -37,7 +40,12 @@ to their plain versions bit for bit, and the three LM wrappers, on
 widths and dtypes the models do not make (flash with Dv != Dh, the scans
 with mixed dtypes), to theirs. Phase 3 also times
 flash attention beside PyTorch's SDPA (the same band mask) and fails
-unless the kernel is the faster; it holds every SSD case's y to its
+unless the kernel is the faster; it holds the RG-LRU scan bit for bit to
+its plain version on both routes (the TMA ring and, for inputs TMA
+cannot take, the generic kernel), at the forward's and the prefill's
+shapes among others, fails unless the planted faults are rejected, and
+times the ring beside the generic kernel at both shapes in turns,
+failing unless the ring is the faster; it holds every SSD case's y to its
 dtype's limit and h_last to the fp32 one, fails unless the planted
 faults are rejected, and times the bf16 SSD kernel beside the fp32
 CUDA-core route at the same shape, failing unless it is the faster.
@@ -150,27 +158,44 @@ SSD_FAULTS = (
 )
 
 
-def ssd_fault_libraries():
-    """One library per planted fault, from a copy of `ssd_scan.cu` under
-    `build/repro_torch/faults/` (each replaced line must occur once)."""
+# planted faults of the RG-LRU scan's TMA ring, in the same form. A
+# fault in the ring's mbarrier parities can deadlock the kernel, which
+# would hang the run: these break the data path only.
+RG_FAULTS = (
+    ("one tile consumed twice",
+     (("const int off = s * TILE + col;",
+       "const int off = (k == 2 ? 1 : s) * TILE + col;"),)),
+    ("the tail tile's steps dropped",
+     (("const int n = min(TS, S - k * TS);",
+       "const int n = S - k * TS < TS ? 0 : TS;"),)),
+    ("the carry reset at each tile",
+     (("ptx::mbar_wait(full + s, (k / NST) & 1);",
+       "ptx::mbar_wait(full + s, (k / NST) & 1);\n        h = 0.f;"),)),
+)
+
+
+def fault_libraries(kernel, faults):
+    """One library per planted fault of `kernel`'s library, from a copy of
+    its source under `build/repro_torch/faults/` (each replaced line must
+    occur once)."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ssd_scan import kernel as ssd
-    src = ssd.LIBRARY.src.read_text()
+    lib = kernel.LIBRARY
+    src = lib.src.read_text()
     libs = []
-    for i, (name, edits) in enumerate(SSD_FAULTS):
+    for i, (name, edits) in enumerate(faults):
         text = src
         for old, new in edits:
             if text.count(old) != 1:
                 raise AssertionError(f"planted fault '{name}': '{old}' "
                                      f"occurs {text.count(old)} times")
             text = text.replace(old, new)
-        path = _build.BUILD_DIR / "faults" / f"fault{i}" / "ssd_scan.cu"
+        path = (_build.BUILD_DIR / "faults" / f"{lib.name}{i}"
+                / lib.src.name)
         path.parent.mkdir(parents=True, exist_ok=True)
         if not path.exists() or path.read_text() != text:
             path.write_text(text)
-        libs.append(_build.Library(f"ssd_scan_fault{i}", path,
-                                   ssd.LIBRARY.flags, ssd._bind,
-                                   ssd.LIBRARY.include_dirs))
+        libs.append(_build.Library(f"{lib.name}_fault{i}", path, lib.flags,
+                                   kernel._bind, lib.include_dirs))
     return libs
 
 
@@ -210,13 +235,18 @@ def _ptxas_usage(lib, kernel: str) -> dict:
 
 
 def phase_build() -> dict:
-    """One nvcc per source (and per planted SSD fault), all started
-    together, then load each; show the ptxas registers and spills of the
-    libraries built with -Xptxas -v, and the tensor-core instructions
-    (wgmma) in the SASS of flash attention and of the SSD scan."""
+    """One nvcc per source (and per planted SSD and RG-LRU fault), all
+    started together, then load each; show the ptxas registers and spills
+    of the libraries built with -Xptxas -v, and the tensor-core
+    instructions (wgmma) in the SASS of flash attention and of the SSD
+    scan."""
     from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels.rg_lru import kernel as rg
+    from repro_torch.kernels.ssd_scan import kernel as ssd
     libs = list(libraries())
-    faults = ssd_fault_libraries()
+    ssd_faults = fault_libraries(ssd, SSD_FAULTS)
+    rg_faults = fault_libraries(rg, RG_FAULTS)
+    faults = ssd_faults + rg_faults
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + len(faults)) as pool:
         futs = [pool.submit(lib.build) for lib in libs + faults]
@@ -250,7 +280,8 @@ def phase_build() -> dict:
     if use["spill_stores"] or use["spill_loads"]:
         raise AssertionError(f"ssd_scan_wgmma_kernel spills: {use}")
     log(f"[2 build] phase {time.perf_counter() - t0:.2f}s")
-    return {"secs": secs, "ssd_ptxas": use, "ssd_faults": faults}
+    return {"secs": secs, "ssd_ptxas": use, "ssd_faults": ssd_faults,
+            "rg_faults": rg_faults}
 
 
 # ---------------------------------------------------------------------------
@@ -606,10 +637,25 @@ FLASH_DV_CASES = ((1, 300, 4, 2, 64, 32, 64, 0.0, "bfloat16"),
                   (1, 300, 4, 2, 64, 128, 0, 0.0, "bfloat16"),
                   (2, 129, 4, 1, 128, 64, 0, 30.0, "float32"),
                   (1, 65, 2, 2, 32, 96, 16, 0.0, "float32"))
-# RG-LRU cases: B, S, C, dtype
+# RG-LRU cases: B, S, C, dtype, and the route the wrapper must take: the
+# TMA ring for rows of a multiple of 16 bytes at aligned pointers, else
+# the generic kernel
 RG_MAIN = (1, 4096, 4096, "float32")       # RG-9B forward, one sequence
-RG_CASES = (RG_MAIN, (2, 1000, 512, "bfloat16"), (3, 257, 999, "float32"),
-            (1, 37, 33, "float32"), (2, 1, 64, "bfloat16"))
+RG_PREFILL = (4, 4096, 4096, "float32")    # RG-9B prefill, 4 sequences
+RG_CASES = (
+    (*RG_MAIN, "rg_lru"), (*RG_PREFILL, "rg_lru"),
+    (2, 1000, 512, "bfloat16", "rg_lru"),
+    (3, 257, 1000, "float32", "rg_lru"),    # channel tail (8 of 32), step tail
+    (2, 77, 520, "bfloat16", "rg_lru"),     # bf16 channel tail
+    (2, 1, 64, "bfloat16", "rg_lru"),       # S = 1
+    (3, 257, 999, "float32", "rg_lru_generic"),  # rows of 3996 bytes
+    (1, 37, 33, "float32", "rg_lru_generic"),
+)
+# a and b one element into their storage (4-byte aligned): the generic
+# kernel on purpose
+RG_OFFSET_CASE = (1, 300, 4096, "float32")
+# the planted faults (RG_FAULTS) run on the ring with a partial last tile
+RG_FAULT_CASE = (1, 4095, 4096, "float32")
 
 
 def _flash_inputs(case, seed):
@@ -627,6 +673,73 @@ def _rg_inputs(case, seed):
     a = torch.rand((B, S, C), generator=g, device="cuda") * 0.2 + 0.8
     b = torch.randn((B, S, C), generator=g, device="cuda") * 0.1
     return a.to(getattr(torch, dt)), b.to(getattr(torch, dt))
+
+
+def _rg_launch(lib, a, b, tma: int, fill=None):
+    """A library's RG-LRU entry point on one route, launched as
+    `kernel.rg_lru_fwd` launches it (not counted); the output starts as
+    `fill` when given, so that a step left unwritten cannot pass on what
+    an earlier launch left in the memory."""
+    import torch
+    from repro_torch.kernels import _build
+    B, S, C = a.shape
+    y = torch.empty_like(a) if fill is None else torch.full_like(a, fill)
+    err = lib.load().rg_lru_launch(
+        _build.ptr(a), _build.ptr(b), _build.ptr(y), B, S, C,
+        int(a.dtype == torch.bfloat16), tma, _build.stream(a.device))
+    if err:
+        raise RuntimeError(f"{lib.name}: CUDA error {err}")
+    return y
+
+
+def _rg_check(a, b, route: str, tag: str) -> None:
+    """The wrapper on a and b must take `route` (one launch counted there)
+    and equal the plain version bit for bit."""
+    import torch
+    from repro_torch.kernels.rg_lru import kernel as rg, ref as rgr
+    n0 = dict(rg.LAUNCHES)
+    got = rg.rg_lru_fwd(a, b)
+    want = rgr.rg_lru_reference(a, b)
+    torch.cuda.synchronize()
+    took = {k: v - n0[k] for k, v in rg.LAUNCHES.items() if v != n0[k]}
+    if took != {route: 1}:
+        raise AssertionError(f"rg_lru {tag}: launches {took}, expected "
+                             f"{{'{route}': 1}}")
+    if not _bits_equal(got, want):
+        raise AssertionError(f"rg_lru {tag}: kernel != plain "
+                             f"(max abs err {_max_abs_err(got, want)})")
+    log(f"[3 kernels] rg_lru {tag} ({route}): bit-equal to plain")
+
+
+def _rg_timing(case) -> dict:
+    """The ring (through the wrapper) and the generic kernel at one shape,
+    in turns (generic, ring, ring, generic), with the plain version and
+    the bound: a, b and h once each over the HBM rate, against 2 FLOP a
+    step at the fp32 rate."""
+    import torch
+    from repro_torch.kernels.rg_lru import kernel as rg, ref as rgr
+    B, S, C, dt = case
+    a, b = _rg_inputs(case, 2)
+    nbytes = _nbytes(a, b, a)
+    bound, by = _bound_ms(nbytes, (2 * B * S * C, F32_OPS_PER_S))
+    ring, generic = [], []
+    for turn in ("generic", "ring", "ring", "generic"):
+        if turn == "ring":
+            ring.append(_device_ms(lambda: rg.rg_lru_fwd(a, b), iters=20))
+        else:
+            generic.append(_device_ms(
+                lambda: _rg_launch(rg.LIBRARY, a, b, 0), iters=20))
+    t = {"ms": min(ring), "ring_turns": ring, "generic_ms": min(generic),
+         "generic_turns": generic,
+         "plain_ms": _device_ms(lambda: rgr.rg_lru_reference(a, b), iters=1),
+         "library_ms": None,
+         "call_ms": _call_ms(lambda: rg.rg_lru_fwd(a, b), iters=20),
+         "bound_ms": bound, "bound_by": by,
+         "shape": f"a/b [{B},{S},{C}] {dt}", "flop": 2 * B * S * C,
+         "bytes": nbytes}
+    del a, b
+    torch.cuda.empty_cache()
+    return t
 
 
 def _flash_timing(case, iters, plain_iters) -> dict:
@@ -716,9 +829,10 @@ def _flash_planted_faults() -> dict:
     return out
 
 
-def phase_lm_kernels() -> dict:
+def phase_lm_kernels(rg_fault_libs) -> dict:
     """Flash attention and the RG-LRU scan against their plain versions
-    on the card, then each timed at the RecurrentGemma-9B path's shape."""
+    on the card, the RG-LRU planted faults rejected, then each timed at
+    the RecurrentGemma-9B path's shapes."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa, ref as far
     from repro_torch.kernels.rg_lru import kernel as rg, ref as rgr
@@ -753,15 +867,37 @@ def phase_lm_kernels() -> dict:
         del q, k, v, got, want, want32
     torch.cuda.empty_cache()
     faults = _flash_planted_faults()
-    for i, case in enumerate(RG_CASES):
+    for i, (*case, route) in enumerate(RG_CASES):
         a, b = _rg_inputs(case, 200 + i)
-        got = rg.rg_lru_fwd(a, b)
-        want = rgr.rg_lru_reference(a, b)
+        _rg_check(a, b, route, str(tuple(case)))
+        del a, b
+    B, S, C, dt = RG_OFFSET_CASE
+    a, b = _rg_inputs(RG_OFFSET_CASE, 240)
+    a1, b1 = (torch.empty(B * S * C + 1, dtype=x.dtype, device=x.device)
+              [1:].view(B, S, C).copy_(x) for x in (a, b))
+    _rg_check(a1, b1, "rg_lru_generic",
+              f"{RG_OFFSET_CASE} one element into its storage")
+    del a, b, a1, b1
+    # the planted faults on the ring: each must be rejected
+    a, b = _rg_inputs(RG_FAULT_CASE, 250)
+    want = rgr.rg_lru_reference(a, b)
+    rg_faults = {}
+    for (name, _), lib in zip(RG_FAULTS, rg_fault_libs):
+        got = _rg_launch(lib, a, b, 1, fill=float("nan"))
         torch.cuda.synchronize()
-        if not _bits_equal(got, want):
-            raise AssertionError(f"rg_lru {case}: kernel != plain "
-                                 f"(max abs err {_max_abs_err(got, want)})")
-        log(f"[3 kernels] rg_lru {case}: bit-equal to plain")
+        if _bits_equal(got, want):
+            raise AssertionError(f"rg_lru: the bit check passes the planted "
+                                 f"fault '{name}'")
+        ok = torch.isfinite(got)
+        rg_faults[name] = {"max_abs_err": _max_abs_err(got, want),
+                           "steps_unwritten": int((~ok).any(-1).sum())}
+        log(f"[3 kernels] rg_lru planted fault '{name}' at {RG_FAULT_CASE}: "
+            f"max abs err {rg_faults[name]['max_abs_err']:.3e} over the "
+            f"written steps, {rg_faults[name]['steps_unwritten']} steps "
+            "unwritten: rejected")
+        del got
+    del a, b, want
+    torch.cuda.empty_cache()
 
     for i, (B, S, H, K, Dh, Dv, W, cap, dt) in enumerate(FLASH_DV_CASES):
         g = torch.Generator(device="cuda").manual_seed(150 + i)
@@ -794,20 +930,9 @@ def phase_lm_kernels() -> dict:
     timing = {"flash_attention": _flash_timing(FLASH_MAIN, iters=20,
                                                plain_iters=5)}
     prefill = _flash_timing(FLASH_PREFILL, iters=5, plain_iters=1)
-    B, S, C, dt = RG_MAIN
-    a, b = _rg_inputs(RG_MAIN, 2)
-    nbytes = _nbytes(a, b, a)
-    bound, by = _bound_ms(nbytes, (2 * B * S * C, F32_OPS_PER_S))
-    timing["rg_lru"] = {
-        "ms": _device_ms(lambda: rg.rg_lru_fwd(a, b), iters=50),
-        "plain_ms": _device_ms(lambda: rgr.rg_lru_reference(a, b), iters=1),
-        "library_ms": None,
-        "call_ms": _call_ms(lambda: rg.rg_lru_fwd(a, b), iters=50),
-        "bound_ms": bound, "bound_by": by,
-        "shape": f"a/b [{B},{S},{C}] {dt}", "flop": 2 * B * S * C,
-        "bytes": nbytes}
-    del a, b
-    for name, t in timing.items():
+    timing["rg_lru"] = _rg_timing(RG_MAIN)
+    rg_prefill = _rg_timing(RG_PREFILL)
+    for name, t in (*timing.items(), ("rg_lru", rg_prefill)):
         lib_ms = ("none" if t["library_ms"] is None
                   else f"{t['library_ms'] * 1e3:.1f} us")
         log(f"[3 kernels] {name} at {t['shape']}: device "
@@ -821,6 +946,15 @@ def phase_lm_kernels() -> dict:
     if not t["ms"] < t["library_ms"]:
         raise AssertionError(f"flash_attention {t['ms']} ms per call, not "
                              f"below SDPA's {t['library_ms']} ms")
+    for t in (timing["rg_lru"], rg_prefill):
+        log(f"[3 kernels] rg_lru at {t['shape']} in turns: the generic "
+            f"kernel {', '.join(f'{x * 1e3:.1f}' for x in t['generic_turns'])}"
+            f" us, the ring {', '.join(f'{x * 1e3:.1f}' for x in t['ring_turns'])}"
+            f" us/call")
+        if not max(t["ring_turns"]) < min(t["generic_turns"]):
+            raise AssertionError(f"rg_lru at {t['shape']}: the ring "
+                                 f"{t['ring_turns']} ms, not below the "
+                                 f"generic kernel's {t['generic_turns']}")
     t = prefill
     log(f"[3 kernels] flash_attention at the prefill shape {t['shape']}: "
         f"device {t['ms'] * 1e3:.1f} us/call (plain "
@@ -833,11 +967,13 @@ def phase_lm_kernels() -> dict:
         f"{timing['flash_attention']['library_err']:.3e}; "
         f"{len(cases)} flash cases within tolerance (max abs err "
         f"{err['flash_attention']:.3e}, row err {row_err:.3e}), "
-        f"{len(faults)} planted faults rejected, {len(RG_CASES)} "
-        f"rg_lru cases bit-equal ({time.perf_counter() - t0:.1f}s)")
+        f"{len(faults)} planted faults rejected, {len(RG_CASES) + 1} "
+        f"rg_lru cases bit-equal, {len(rg_faults)} rg_lru planted faults "
+        f"rejected ({time.perf_counter() - t0:.1f}s)")
     torch.cuda.empty_cache()
     return {"err": err, "timing": timing, "flash_prefill": prefill,
-            "flash_row_err": row_err, "flash_faults": faults}
+            "rg_prefill": rg_prefill, "flash_row_err": row_err,
+            "flash_faults": faults, "rg_faults": rg_faults}
 
 
 # SSD scan cases: B, S, H, P, N, chunk, G, dtype
@@ -1196,10 +1332,15 @@ def phase_cross(trees: dict) -> None:
 # phase 6: RecurrentGemma-9B inference at full width and depth
 # ---------------------------------------------------------------------------
 EXPECTED_LAUNCHES = {  # per call, at 38 layers: 12 local, 26 rglru
-    "forward_launches": {"flash_attention": 12, "rg_lru": 26, "ssd_scan": 0},
-    "prefill_launches": {"flash_attention": 12, "rg_lru": 0, "ssd_scan": 0},
-    "decode_launches": {"flash_attention": 0, "rg_lru": 0, "ssd_scan": 0},
+    "forward_launches": {"flash_attention": 12, "rg_lru": 26,
+                         "rg_lru_generic": 0, "ssd_scan": 0},
+    "prefill_launches": {"flash_attention": 12, "rg_lru": 26,
+                         "rg_lru_generic": 0, "ssd_scan": 0},
+    "decode_launches": {"flash_attention": 0, "rg_lru": 0,
+                        "rg_lru_generic": 0, "ssd_scan": 0},
 }
+#: counted routes that no path may take
+OFF_PATH = ("rg_lru_generic",)
 
 
 def phase_lm() -> dict:
@@ -1215,8 +1356,8 @@ def phase_lm() -> dict:
     launches = {**fa_ops.LAUNCHES, **rg_ops.LAUNCHES}
     wall = time.perf_counter() - t0
     for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"the LM path never launched {name}")
+        if (n > 0) == (name in OFF_PATH):
+            raise AssertionError(f"the LM path launched {name} {n} times")
     for key, want in EXPECTED_LAUNCHES.items():
         if out[key] != want:
             raise AssertionError(f"{key}: {out[key]}, expected {want}")
@@ -1254,11 +1395,33 @@ def phase_lm() -> dict:
 # ---------------------------------------------------------------------------
 # phase 7: one period at full width, fp32, card against CPU
 # ---------------------------------------------------------------------------
+def _prefill_two_chunks(p, cfg, toks, half: int):
+    """Prefill toks[:, :half] into fp32 caches, then feed toks[:, half:]
+    from them, so that the second chunk's rglru layers start from the
+    first's state (the carried-state branch, h0 != 0). Returns (the last
+    position's logits [B, V], the rglru layers' final h stacked)."""
+    import torch
+    from repro_torch.models import lm, rglru
+    caches = lm.init_caches(cfg, toks.shape[0], toks.shape[1],
+                            dtype=torch.float32, device=toks.device)
+    _, caches = lm.prefill(p, cfg, toks[:, :half], caches)
+    last, caches, _ = lm.forward(p, cfg, toks[:, half:], caches=caches,
+                                 cache_pos=half, head_mode="last")
+    layers = caches["prologue"] + [c for g in caches["groups"] for c in g]
+    hs = [c.h for c in layers if isinstance(c, rglru.RGLRUState)]
+    return last[:, 0], torch.stack(hs)
+
+
+def _rel(x, ref) -> float:
+    return float((x - ref).abs().max() / ref.abs().max())
+
+
 def phase_lm_cross() -> None:
     import dataclasses
     import torch
     from repro_torch import configs
     from repro_torch.bench import lm_serve
+    from repro_torch.kernels.rg_lru import ops as rg_ops
     from repro_torch.models import lm
     # full fp32 matmuls on the card, as on the CPU (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1266,6 +1429,7 @@ def phase_lm_cross() -> None:
     t0 = time.perf_counter()
     cfg = dataclasses.replace(configs.get_config("recurrentgemma-9b"),
                               n_layers=3, dtype="float32")
+    half = 128
     with torch.inference_mode():
         p = lm_serve.build(cfg, 7, "cuda")
         g = torch.Generator(device="cuda").manual_seed(8)
@@ -1273,17 +1437,36 @@ def phase_lm_cross() -> None:
                              device="cuda")
         card, _, _ = lm.forward(p, cfg, toks)
         card = card.cpu()
+        rg_ops.reset_launches()
+        card_last, card_h = _prefill_two_chunks(p, cfg, toks, half)
+        torch.cuda.synchronize()
+        launched = dict(rg_ops.LAUNCHES)
+        card_last, card_h = card_last.cpu(), card_h.cpu()
         p.to("cpu")
         torch.cuda.empty_cache()
         cpu, _, _ = lm.forward(p, cfg, toks.cpu())
-    rel = float((card - cpu).abs().max() / cpu.abs().max())
+        cpu_last, cpu_h = _prefill_two_chunks(p, cfg, toks.cpu(), half)
+    rel = _rel(card, cpu)
     agree = float((card.argmax(-1) == cpu.argmax(-1)).float().mean())
     log(f"[7 lm-cross] 3 layers (rglru, rglru, local) at d_model "
         f"{cfg.d_model}, vocab {cfg.vocab}, fp32, 1 x 256 tokens: card vs "
         f"CPU rel max abs {rel:.3e} (tol {TOL_CROSS_F32}), argmax agrees at "
-        f"{agree:.1%} ({time.perf_counter() - t0:.1f}s)")
+        f"{agree:.1%}")
     if not rel <= TOL_CROSS_F32:
         raise AssertionError(f"card vs CPU rel {rel}")
+    # two rglru layers a chunk, each through the ring on the card
+    if launched != {"rg_lru": 4, "rg_lru_generic": 0}:
+        raise AssertionError(f"prefill in two chunks launched {launched}")
+    rel_last, rel_h = _rel(card_last, cpu_last), _rel(card_h, cpu_h)
+    log(f"[7 lm-cross] prefill of 2 x {half} tokens, the second chunk from "
+        f"the first's state (the RG-LRU kernel on the card, {launched}; the "
+        f"sequential plain scan on the CPU): card vs CPU rel max abs, last "
+        f"logits {rel_last:.3e}, rglru states {rel_h:.3e} (tol "
+        f"{TOL_CROSS_F32}); against the card's forward at the last position "
+        f"{_rel(card_last, card[:, -1]):.3e} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    if not (rel_last <= TOL_CROSS_F32 and rel_h <= TOL_CROSS_F32):
+        raise AssertionError(f"prefill card vs CPU rel {rel_last}, {rel_h}")
 
 
 # ---------------------------------------------------------------------------
@@ -1292,9 +1475,12 @@ def phase_lm_cross() -> None:
 MAMBA_PARAMS = 780_161_280
 MAMBA_SCORE_BATCH = 4   # sequences scored at once: 4 x 4096 tokens
 MAMBA_LAUNCHES = {  # per call, at 48 SSD layers
-    "forward_launches": {"flash_attention": 0, "rg_lru": 0, "ssd_scan": 48},
-    "prefill_launches": {"flash_attention": 0, "rg_lru": 0, "ssd_scan": 0},
-    "decode_launches": {"flash_attention": 0, "rg_lru": 0, "ssd_scan": 0},
+    "forward_launches": {"flash_attention": 0, "rg_lru": 0,
+                         "rg_lru_generic": 0, "ssd_scan": 48},
+    "prefill_launches": {"flash_attention": 0, "rg_lru": 0,
+                         "rg_lru_generic": 0, "ssd_scan": 0},
+    "decode_launches": {"flash_attention": 0, "rg_lru": 0,
+                        "rg_lru_generic": 0, "ssd_scan": 0},
 }
 
 
@@ -1434,7 +1620,7 @@ def main() -> int:
     phase_device()
     built = phase_build()
     kern = phase_kernels()
-    lm_kern = phase_lm_kernels()
+    lm_kern = phase_lm_kernels(built["rg_faults"])
     ssd_kern = phase_ssd_kernels(built["ssd_faults"])
     das_path = phase_main()
     phase_cross(das_path["out"]["trees"])

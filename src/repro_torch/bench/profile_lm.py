@@ -32,7 +32,7 @@ from repro_torch.models import lm
 
 GROUPS = (  # first match wins
     ("flash_attention", ("flash_fwd",)),  # both dtypes' kernels
-    ("rg_lru", ("rg_lru_kernel",)),
+    ("rg_lru", ("rg_lru_kernel", "rg_lru_tma_kernel")),  # both routes
     ("ssd_scan", ("ssd_scan",)),          # both dtypes' kernels
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("copy_cast", ("copy", "cast", "convert")),

@@ -1,8 +1,9 @@
 // PTX wrappers shared by the port's bf16 tensor-core kernels, flash
-// attention and the SSD scan (sm_90a): Hopper's warpgroup products (wgmma)
-// with their shared-memory descriptors, TMA tensor maps and loads, the
-// mbarriers they complete on, setmaxnreg, and cp.async. Libraries include
-// it through `-I` (see `kernels/_build.py`).
+// attention and the SSD scan, and by the RG-LRU scan's TMA ring (sm_90a):
+// Hopper's warpgroup products (wgmma) with their shared-memory
+// descriptors, TMA tensor maps and loads, the mbarriers they complete on,
+// setmaxnreg, and cp.async. Libraries include it through `-I` (see
+// `kernels/_build.py`).
 //
 // Register fragments of wgmma.m64nNk16 (warp w of the warpgroup owns rows
 // 16w .. 16w + 15; g = lane / 4, t = lane % 4), each 32-bit register two

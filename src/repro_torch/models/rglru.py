@@ -9,11 +9,11 @@ RG-LRU recurrence (per channel):
     a_t = exp(-c * softplus(L) * r_t)     log-space decay, L learnable
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-The stateless path (scoring) runs the recurrence through
-`kernels/rg_lru` (the CUDA kernel on the GPU, its plain version on the
-CPU); a prefill that carries state uses the log-depth scan `_scan`, and
-decode carries h (and the conv window) in `RGLRUState`, as the reference
-does.
+Scoring and a prefill that carries state both run the recurrence through
+`kernels/rg_lru` (the CUDA kernel on the GPU, its plain sequential version
+on the CPU): a carried h folds into step 0, as the reference's `_scan`
+does, and the scan then starts from zero. Decode carries h (and the conv
+window) in `RGLRUState`, as the reference does.
 """
 from __future__ import annotations
 
@@ -71,25 +71,6 @@ def _gates(p, cfg, u):
     return a, bx
 
 
-def _scan(a, bx, h0=None):
-    """Linear recurrence h_t = a_t h_{t-1} + bx_t along axis 1 (fp32), as a
-    log-depth (Hillis-Steele) scan of the reference's combine
-    (a1, b1), (a2, b2) -> (a1 a2, a2 b1 + b2); `h0` folds into step 0."""
-    if h0 is not None:
-        bx = bx.clone()
-        bx[:, 0] = bx[:, 0] + a[:, 0] * h0
-    S = a.shape[1]
-    d = 1
-    while d < S:
-        b_new = bx.clone()
-        b_new[:, d:] = a[:, d:] * bx[:, :-d] + bx[:, d:]
-        a_new = a.clone()
-        a_new[:, d:] = a[:, :-d] * a[:, d:]
-        a, bx = a_new, b_new
-        d *= 2
-    return bx
-
-
 def rglru_apply(p, cfg, x, state: Optional[RGLRUState] = None):
     """x [B,S,D] -> (y [B,S,D], new_state)."""
     rc = cfg.rglru
@@ -109,7 +90,12 @@ def rglru_apply(p, cfg, x, state: Optional[RGLRUState] = None):
         full = torch.cat([state.conv.to(u.dtype), u], dim=1)
         u = nn.conv1d_apply(p["conv"], full)[:, state.conv.shape[1]:]
         a, bx = _gates(p, cfg, u)
-        h = _scan(a, bx, h0=state.h.float())
+        # fold the carry into step 0 (two rounded operations, as the
+        # reference's `_scan`; bx is this call's own, so in place), then
+        # scan from zero: fmul(a_0, 0) + bx_0' is bx_0', so h equals the
+        # sequential recurrence from state.h
+        bx[:, 0] += a[:, 0] * state.h.float()
+        h = rg_ops.rg_lru_scan(a, bx)
         new_state = RGLRUState(
             h[:, -1].to(state.h.dtype),
             full[:, -(rc.conv_width - 1):, :].to(state.conv.dtype))

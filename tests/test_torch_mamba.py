@@ -166,7 +166,8 @@ def test_lm_serve_small_on_cpu(vocab):
     assert out["check"]["positions"] == 2 * 5
     assert out["check"]["rel_max_abs"] <= REL["float32"]
     assert out["check"]["argmax_agree"] == 1.0
-    zero = {"flash_attention": 0, "rg_lru": 0, "ssd_scan": 0}
+    zero = {"flash_attention": 0, "rg_lru": 0, "rg_lru_generic": 0,
+            "ssd_scan": 0}
     assert out["forward_launches"] == zero
     assert out["decode_launches"] == zero
 
