@@ -4,10 +4,9 @@ kernel, on the GPU.
     python -m repro_torch.bench.rg_lru_designs [--out FILE]
 
 Builds `kernels/rg_lru/csrc/rg_lru.cu` once per (channels a block, steps
-a tile, stages, h by TMA stores) of `VARIANTS` (`-DRG_COLS`,
-`-DRG_STEPS`, `-DRG_STAGES`, `-DRG_TMA_STORE`; all nvcc runs at once),
-holds every variant bit for bit to `ref.rg_lru_reference` at each shape
-of `SHAPES`, then times each at
+a tile, stages) of `VARIANTS` (`-DRG_COLS`, `-DRG_STEPS`, `-DRG_STAGES`;
+all nvcc runs at once), holds every variant bit for bit to
+`ref.rg_lru_reference` at each shape of `SHAPES`, then times each at
 RecurrentGemma-9B's `forward` and `prefill` shapes in turns (the generic
 kernel, the variants, the variants in reverse, the generic kernel), as
 device time per call from a CUDA graph of calls. Prints one JSON line:
@@ -27,26 +26,24 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.rg_lru import kernel, ref
 
 HBM_BYTES_PER_S = 3.35e12
-#: (channels a block, steps a tile, stages in the ring, 1 to write h
-#: through output tiles and TMA stores, 0 a row a step from registers)
-VARIANTS = ((32, 32, 6, 0), (32, 32, 4, 0), (32, 64, 3, 0), (16, 64, 6, 0),
-            (32, 32, 5, 1), (32, 32, 6, 1), (32, 64, 3, 1))
+#: (channels a block, steps a tile, stages in the ring); the first is the
+#: kernel's default
+VARIANTS = ((32, 32, 6), (32, 32, 4), (32, 64, 3), (32, 64, 6),
+            (32, 16, 12), (16, 64, 6), (16, 32, 12))
 #: checked shapes: the two path shapes, then channel and step tails
 SHAPES = ((1, 4096, 4096, "float32"), (4, 4096, 4096, "float32"),
           (3, 257, 1000, "float32"), (2, 1000, 520, "bfloat16"))
 TIMED = SHAPES[:2]
 
 
-def _name(cols: int, steps: int, stages: int, store: int) -> str:
-    return f"c{cols}_t{steps}_s{stages}" + ("_tma_store" if store else "")
+def _name(cols: int, steps: int, stages: int) -> str:
+    return f"c{cols}_t{steps}_s{stages}"
 
 
-def _library(cols: int, steps: int, stages: int,
-             store: int) -> _build.Library:
+def _library(cols: int, steps: int, stages: int) -> _build.Library:
     flags = kernel.NVCC_FLAGS + (f"-DRG_COLS={cols}", f"-DRG_STEPS={steps}",
-                                 f"-DRG_STAGES={stages}",
-                                 f"-DRG_TMA_STORE={store}")
-    return _build.Library("rg_lru_" + _name(cols, steps, stages, store),
+                                 f"-DRG_STAGES={stages}")
+    return _build.Library("rg_lru_" + _name(cols, steps, stages),
                           kernel.LIBRARY.src, flags, kernel._bind,
                           kernel.LIBRARY.include_dirs)
 

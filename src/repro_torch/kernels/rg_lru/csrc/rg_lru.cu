@@ -59,9 +59,6 @@
 #ifndef RG_STAGES
 #define RG_STAGES 6  // tiles in the ring
 #endif
-#ifndef RG_TMA_STORE
-#define RG_TMA_STORE 0  // 1: h through two output tiles and TMA stores
-#endif
 
 namespace {
 
@@ -135,31 +132,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
         : "memory");
 }
 
-// h's tile from shared memory into the tensor, clipped at its edges
-__device__ __forceinline__ void tma_store_3d(const void* map, const void* src,
-                                             int c0, int c1, int c2) {
-    asm volatile(
-        "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
-        " [%0, {%1, %2, %3}], [%4];\n" ::"l"(map),
-        "r"(c0), "r"(c1), "r"(c2), "r"(ptx::smem_addr(src))
-        : "memory");
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
 // Warp 0 consumes, lane 0 of warp 1 produces. Tile k of the block's
 // channels c0 .. c0 + CB - 1 (steps k * TS ..) goes to stage k % NST.
 template <typename T>
 __global__ void __launch_bounds__(64)
 rg_lru_tma_kernel(const __grid_constant__ CUtensorMap tm_a,
                   const __grid_constant__ CUtensorMap tm_b,
-                  const __grid_constant__ CUtensorMap tm_y,
                   T* __restrict__ y, int S, int C, int n_cb) {
     extern __shared__ __align__(128) unsigned char smem_raw[];
     T* sa = reinterpret_cast<T*>(smem_raw);
     T* sb = sa + NST * TILE;
-    T* so = sb + NST * TILE;  // RG_TMA_STORE: two output tiles
-    uint64_t* full = reinterpret_cast<uint64_t*>(so + (RG_TMA_STORE ? 2 : 0)
-                                                 * TILE);
+    uint64_t* full = reinterpret_cast<uint64_t*>(sb + NST * TILE);
     uint64_t* empty = full + NST;
     const int c0 = (int)(blockIdx.x % n_cb) * CB;
     const int b = (int)(blockIdx.x / n_cb);
@@ -200,16 +183,6 @@ rg_lru_tma_kernel(const __grid_constant__ CUtensorMap tm_a,
         const T* ta = sa + off;
         const T* tb = sb + off;
         T* yk = yb + (size_t)k * TS * C;
-        T* ob = so + (k & 1) * TILE + col;
-        size_t ys = C;
-        if (RG_TMA_STORE) {
-            // the store of tile k - 2 has read this output tile
-            if (lane == 0 && k >= 2)
-                asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-            __syncwarp();
-            yk = ob;
-            ys = CB;
-        }
         const int n = min(TS, S - k * TS);
         if (n == TS) {
 #pragma unroll
@@ -223,25 +196,19 @@ rg_lru_tma_kernel(const __grid_constant__ CUtensorMap tm_a,
 #pragma unroll
                 for (int u = 0; u < UT; ++u) {
                     h = __fadd_rn(__fmul_rn(av[u], h), bv[u]);
-                    if (store) yk[(size_t)(t0 + u) * ys] = from_f<T>(h);
+                    if (store) yk[(size_t)(t0 + u) * C] = from_f<T>(h);
                 }
             }
         } else {
             for (int t = 0; t < n; ++t) {
                 h = __fadd_rn(__fmul_rn(to_f(ta[t * CB]), h),
                               to_f(tb[t * CB]));
-                if (store) yk[(size_t)t * ys] = from_f<T>(h);
+                if (store) yk[(size_t)t * C] = from_f<T>(h);
             }
         }
-        if (RG_TMA_STORE) ptx::fence_proxy_async();
         __syncwarp();  // every lane's reads of the stage are done
-        if (lane == 0) {
-            ptx::mbar_arrive(empty + s);
-            if (RG_TMA_STORE) tma_store_3d(&tm_y, ob - col, c0, k * TS, b);
-        }
+        if (lane == 0) ptx::mbar_arrive(empty + s);
     }
-    if (RG_TMA_STORE && lane == 0)
-        asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 template <typename T>
@@ -280,22 +247,19 @@ int launch_tma(const void* a, const void* b, void* y, int B, int S, int C,
     // TMA's rules: 16-byte aligned bases, rows a multiple of 16 bytes
     if ((((uintptr_t)a | (uintptr_t)b) & 15) || (C * sizeof(T)) % 16)
         return (int)cudaErrorInvalidValue;
-    CUtensorMap ta{}, tb{}, ty{};
+    CUtensorMap ta{}, tb{};
     if (!(tensor_map_3d<T>(&ta, a, B, S, C) &&
-          tensor_map_3d<T>(&tb, b, B, S, C) &&
-          tensor_map_3d<T>(&ty, y, B, S, C)))
+          tensor_map_3d<T>(&tb, b, B, S, C)))
         return (int)cudaErrorInvalidValue;
     const int n_cb = (C + CB - 1) / CB;
     const long long blocks = (long long)n_cb * B;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const size_t smem = (2 * NST + (RG_TMA_STORE ? 2 : 0)) * TILE * sizeof(T) +
-                        2 * NST * sizeof(uint64_t);
+    const size_t smem = 2 * NST * TILE * sizeof(T) + 2 * NST * sizeof(uint64_t);
     auto kern = rg_lru_tma_kernel<T>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    kern<<<(unsigned)blocks, 64, smem, stream>>>(ta, tb, ty, (T*)y, S, C,
-                                                 n_cb);
+    kern<<<(unsigned)blocks, 64, smem, stream>>>(ta, tb, (T*)y, S, C, n_cb);
     return (int)cudaGetLastError();
 }
 
