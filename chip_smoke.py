@@ -163,8 +163,8 @@ SSD_FAULTS = (
 # would hang the run: these break the data path only.
 RG_FAULTS = (
     ("one tile consumed twice",
-     (("const int off = s * TILE + col;",
-       "const int off = (k == 2 ? 1 : s) * TILE + col;"),)),
+     (("const int off = s * TILE + lane;",
+       "const int off = (k == 2 ? 1 : s) * TILE + lane;"),)),
     ("the tail tile's steps dropped",
      (("const int n = min(TS, S - k * TS);",
        "const int n = S - k * TS < TS ? 0 : TS;"),)),

@@ -15,19 +15,19 @@
 // Two routes, chosen by the caller (kernel.py) and passed in `tma`:
 //
 // rg_lru_tma_kernel (the path's route). One sequential chain per (batch,
-// channel), walked in t: a block owns RG_COLS neighbouring channels of
-// one batch row. t is not split into chunks scanned in parallel: that
+// channel), walked in t: a block owns 32 neighbouring channels of one
+// batch row. t is not split into chunks scanned in parallel: that
 // would change the rounding and lose bit-equality, and the chain, two
 // rounded operations (about 8 cycles) a step, is about 18 us over 4096
 // steps, under the 60 us bytes bound. What keeps the kernel from its bound
 // is latency: HBM at 3.35 TB/s and about 1 us loaded latency needs 2-3 MB
 // in flight, 15-25 KB per SM. So a producer warp streams a and b by TMA
-// (a 3-d tensor map over (C, S, B), zeros outside it) into a ring of
-// RG_STAGES stages in shared memory, each a tile of RG_STEPS steps x
-// RG_COLS channels of both arrays, completing on one "full" mbarrier a
-// stage; the consumer warp reads its lane's a and b from the tile (off the
-// dependent chain), runs the chain, writes h as one coalesced row a step,
-// and releases the stage on its "empty" mbarrier. The ring holds 48 KB a
+// (a 3-d tensor map over (C, S, B), zeros outside it) into a ring of 6
+// stages in shared memory, each a tile of 32 steps x 32 channels of both
+// arrays, completing on one "full" mbarrier a stage; the consumer warp
+// reads its lane's a and b from the tile (off the dependent chain), runs
+// the chain, writes h as one coalesced row a step, and releases the stage
+// on its "empty" mbarrier. The ring holds 48 KB a
 // block: one block an SM at [1, 4096, 4096] keeps 40 KB in flight, and
 // four fit an SM, so the 512 blocks of [4, 4096, 4096] run in one wave.
 // TMA needs 16-byte aligned bases and rows of a multiple of 16 bytes
@@ -50,26 +50,20 @@
 
 #include "ptx.cuh"
 
-#ifndef RG_COLS
-#define RG_COLS 32   // channels a block (a tile's row: 128 bytes in fp32)
-#endif
-#ifndef RG_STEPS
-#define RG_STEPS 32  // steps a tile
-#endif
-#ifndef RG_STAGES
-#define RG_STAGES 6  // tiles in the ring
-#endif
-
 namespace {
 
 constexpr int U = 16;        // steps fetched ahead (generic route)
 constexpr int NTHREAD = 32;  // one warp per block: 32 channels
 
-constexpr int CB = RG_COLS, TS = RG_STEPS, NST = RG_STAGES;
-constexpr int TILE = TS * CB;          // elements of one array in a stage
-constexpr int UT = TS < 16 ? TS : 16;  // steps read ahead of the chain
-static_assert(CB == 8 || CB == 16 || CB == 32, "RG_COLS");
-static_assert(TS % UT == 0 && TS <= 256 && NST >= 2, "RG_STEPS, RG_STAGES");
+// the ring (TMA route): of the tiles timed against each other on the
+// H100 (16 or 32 channels, 16-64 steps, 3-12 stages), the fastest at both
+// RecurrentGemma-9B shapes
+constexpr int CB = 32;         // channels a block: a 128-byte row in fp32
+constexpr int TS = 32;         // steps a tile
+constexpr int NST = 6;         // tiles in the ring
+constexpr int TILE = TS * CB;  // elements of one array in a stage
+constexpr int UT = 16;         // steps read ahead of the chain
+static_assert(CB == 32, "a lane of the consumer warp walks each channel");
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -171,15 +165,14 @@ rg_lru_tma_kernel(const __grid_constant__ CUtensorMap tm_a,
         return;
     }
 
-    // consumer: lanes past CB repeat lane % CB's chain and store nothing
-    const int col = lane % CB;
-    const bool store = lane < CB && c0 + col < C;
-    T* yb = y + (size_t)b * S * C + c0 + col;
+    // consumer: a lane walks channel c0 + lane
+    const bool store = c0 + lane < C;
+    T* yb = y + (size_t)b * S * C + c0 + lane;
     float h = 0.f;
     for (int k = 0; k < n_tiles; ++k) {
         const int s = k % NST;
         ptx::mbar_wait(full + s, (k / NST) & 1);
-        const int off = s * TILE + col;
+        const int off = s * TILE + lane;
         const T* ta = sa + off;
         const T* tb = sb + off;
         T* yk = yb + (size_t)k * TS * C;
