@@ -13,7 +13,14 @@ three paths through them:
     and the card's schedules against the CPU's; on the card the simulator
     replays each block of super-steps from one CUDA graph, which phase 4
     times against the eager loop (one oracle-sized sweep, in turns) and
-    phase 5 holds to it in every result field;
+    phase 5 holds to it in every result field; phase 5b runs the fault
+    path (16 fault plans on one cell in LUT, ETF and DAS: kills,
+    retries, drops, deadlines, the search fed a real live-PE mask),
+    graph against eager and card against CPU, its launches per
+    super-step asserted; phase 5c runs every DAS section of the
+    benchmark (`repro_torch.bench.run`: fig2, fig3, table2, summary40,
+    heuristic, overhead, faults) at its full size and holds each to
+    `benchmarks/BENCH_sweep.json`;
   * RecurrentGemma-9B inference at full width and depth (38 layers,
     d_model 4096, vocab 256,000, random weights from a seed): scoring
     4096 tokens, then serving 4 prompts of 4096 tokens with 32 greedy
@@ -1329,6 +1336,190 @@ def phase_cross(trees: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: the fault path on the card
+# ---------------------------------------------------------------------------
+# the fault path: `bench.faults.stress_plans()` (16 scenarios) on that
+# section's cell (mix 5, rate 6) at 60 frames. What one super-step launches under these plans, which can fail, kill
+# and drop (`faults.plan_capabilities` = (True, True, True)): `avail_rows`
+# twice (the completion push and the retry re-push of a killed task); the
+# masked search with the live-PE mask twice in every mode that searches
+# (the feasibility check before the decide, whose result the decide
+# reuses, and the one after it); the LUT never searches
+FAULT_ROWS_PER_STEP = 2
+FAULT_SEARCHES_PER_STEP = {"LUT": 0, "ETF": 2, "DAS": 2}
+FAULT_EXACT = EXACT_FIELDS + ("job_dropped", "n_faults", "n_retries",
+                              "n_dropped_jobs", "n_dropped_tasks",
+                              "n_recovered")
+FAULT_AGG = AGG_FIELDS + ("reexec_us", "recovery_us")
+
+
+def phase_faults(trees: dict) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.bench import faults as fault_bench
+    from repro_torch.core import convert, faults, simulator as sim
+    from repro_torch.core import workloads
+    from repro_torch.kernels.etf_ft import ops
+    t0 = time.perf_counter()
+    suite = workloads.default_suite(n_instances=60)
+    cell = (fault_bench.MIX_IDX, fault_bench.RATE_IDX)
+    plan = fault_bench.stress_plans()
+    n = plan.pe_fail_at.shape[0]
+    stacked = workloads.stack_workloads([suite.build(*cell)] * n)
+    if faults.plan_capabilities(plan) != faults.FULL_CAPS:
+        raise AssertionError("the fault plans must build every phase")
+    total = {}
+    worst = 0.0
+    for mode in (sim.MODE_LUT, sim.MODE_ETF, sim.MODE_DAS):
+        name = sim.MODE_NAMES[mode]
+        res = {}
+        for dev in ("cuda", "cpu"):
+            tree = (convert.dtree_from_numpy(**trees["DAS"], device=dev)
+                    if mode == sim.MODE_DAS else None)
+            tel = []
+            ops.reset_launches()
+            t1 = time.perf_counter()
+            res[dev] = sim.to_numpy(sim.run_batch(
+                mode, stacked, tree=tree, plan=plan, device=dev,
+                telemetry=tel))
+            if dev == "cuda":
+                wall = time.perf_counter() - t1
+                steps = sum(x["steps"] for x in tel)
+                launches = dict(ops.LAUNCHES)
+                eager = sim.to_numpy(sim._run_batch(
+                    sim._simulate_eager, mode, stacked, tree=tree,
+                    plan=plan, device=dev))
+        want = {k: 0 for k in launches}
+        want["avail_rows"] = FAULT_ROWS_PER_STEP * steps
+        want["etf_ft_search_masked"] = FAULT_SEARCHES_PER_STEP[name] * steps
+        if launches != want:
+            raise AssertionError(f"fault path {name}: launches {launches} "
+                                 f"over {steps} super-steps, expected "
+                                 f"{want}")
+        for k, count in launches.items():
+            total[k] = total.get(k, 0) + count
+        for f in sim.SimResult._fields:
+            a, b = getattr(res["cuda"], f), getattr(eager, f)
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                raise AssertionError(f"fault path {name} {f}: card graph "
+                                     "!= card eager")
+        for f in FAULT_EXACT:
+            a, b = getattr(res["cuda"], f), getattr(res["cpu"], f)
+            if a.dtype != b.dtype or not np.array_equal(a, b,
+                                                        equal_nan=True):
+                raise AssertionError(f"fault path {name} {f}: card != CPU")
+        for f in FAULT_AGG:
+            a = getattr(res["cuda"], f).astype(np.float64)
+            b = getattr(res["cpu"], f).astype(np.float64)
+            rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+            worst = max(worst, float(rel.max()))
+            if (rel > TOL_AGG).any():
+                raise AssertionError(f"fault path {name} {f}: rel "
+                                     f"{rel.max():.2e} > {TOL_AGG}")
+        r = res["cuda"]
+        if not (r.n_faults.sum() and r.n_retries.sum()
+                and r.n_dropped_jobs.sum()):
+            raise AssertionError(f"fault path {name}: no kill, retry or "
+                                 "drop happened")
+        if r.stalled.any() or (r.n_done != stacked.n_tasks).any():
+            raise AssertionError(f"fault path {name}: a scenario stalled")
+        log(f"[5b faults] {name}: {n} scenarios, {steps} "
+            f"super-steps in {wall:.2f}s ({wall * 1e3 / steps:.3f} ms/step "
+            f"captured); kills {int(r.n_faults.sum())}, retries "
+            f"{int(r.n_retries.sum())}, dropped jobs "
+            f"{int(r.n_dropped_jobs.sum())} / tasks "
+            f"{int(r.n_dropped_tasks.sum())}; launches {launches}")
+    torch.cuda.synchronize()
+    log(f"[5b faults] mix {cell[0]} rate {cell[1]} at 60 frames x "
+        f"LUT/ETF/DAS under stress_plans(): every field bit-equal "
+        f"card graph vs card eager; schedules and fault counts bit-equal "
+        f"card vs CPU, float aggregates within {worst:.2e} relative "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return {"launches": total}
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: every DAS section of the benchmark at its full size
+# ---------------------------------------------------------------------------
+SECTION_REL = 1e-5      # a float of a section against BENCH_sweep.json
+LR_ABS = 1e-3           # an LR accuracy (tests/test_torch_oracle_das.py)
+# floats that are counts, fractions of counts or table entries: equal
+SECTION_EQUAL = ("fast_frac", "slow_frac", "das_matches_best_frac",
+                 "threshold", "rate_mbps", "storage_kb")
+BENCH_RUN_JSON = ROOT / "build" / "repro_torch" / "bench_run.json"
+
+
+def _timing_key(key: str) -> bool:
+    return key in ("us_per_call", "wall_s") or "_us_per_" in key
+
+
+def _hold(ref, got, path: str, gaps: list, row=None) -> None:
+    """Hold `got` to the reference's `ref` (a section's result): equal
+    for counts, booleans, strings and `SECTION_EQUAL`, DT accuracies
+    equal, LR ones within `LR_ABS`, every other float within
+    `SECTION_REL` relative; timing keys skipped. Appends each float's
+    relative gap to `gaps`; raises on a miss."""
+    if isinstance(ref, dict):
+        for k, v in ref.items():
+            if _timing_key(k):
+                continue
+            if k not in got:
+                raise AssertionError(f"{path}.{k}: missing in the port")
+            _hold(v, got[k], f"{path}.{k}", gaps, row=ref)
+        return
+    if isinstance(ref, list):
+        if len(ref) != len(got):
+            raise AssertionError(f"{path}: {len(got)} entries, reference "
+                                 f"{len(ref)}")
+        for i, (a, b) in enumerate(zip(ref, got)):
+            _hold(a, b, f"{path}[{i}]", gaps, row=row)
+        return
+    key = path.rsplit(".", 1)[-1].split("[")[0]
+    if isinstance(ref, float) and not isinstance(ref, bool):
+        gap = abs(got - ref) / max(abs(ref), 1e-30)
+        gaps.append(gap)
+        lr = (key == "accuracy" and row is not None
+              and str(row.get("classifier", "")).startswith("LR"))
+        if lr:
+            if abs(got - ref) > LR_ABS:
+                raise AssertionError(f"{path}: {got!r} vs {ref!r}")
+        elif key in SECTION_EQUAL or key == "accuracy":
+            if got != ref:
+                raise AssertionError(f"{path}: {got!r} != {ref!r}")
+        elif not gap <= SECTION_REL:
+            raise AssertionError(f"{path}: {got!r} vs {ref!r}, rel {gap:.2e}")
+        return
+    if got != ref:
+        raise AssertionError(f"{path}: {got!r} != {ref!r}")
+
+
+def phase_sections() -> dict:
+    import os
+    from repro_torch.bench import run as bench_run
+    t0 = time.perf_counter()
+    for knob in ("REPRO_BENCH_INSTANCES", "REPRO_BENCH_FULL"):
+        os.environ.pop(knob, None)     # the benchmark's own size
+    record = bench_run.main(["--device", "cuda", "--json",
+                             str(BENCH_RUN_JSON)])
+    ref = json.loads((ROOT / "benchmarks" / "BENCH_sweep.json")
+                     .read_text())["sections"]
+    for name, _, _ in bench_run.SECTIONS:
+        gaps = []
+        _hold(ref[name]["result"], record["sections"][name]["result"],
+              name, gaps)
+        log(f"[5c sections] {name}: {record['sections'][name]['wall_s']:.1f}s"
+            f", {len(gaps)} floats held, largest relative gap "
+            f"{max(gaps, default=0.0):.3e}")
+    launches = record["kernels"]
+    if not (launches["etf_ft_search"] and launches["etf_ft_search_masked"]):
+        raise AssertionError(f"sections launched {launches}")
+    log(f"[5c sections] all seven at 60 frames on the 40 x 14 grid in "
+        f"{record['total_s']:.1f}s, record in {BENCH_RUN_JSON}; launches "
+        f"{launches} ({time.perf_counter() - t0:.1f}s)")
+    return {"launches": launches, "record": record}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: RecurrentGemma-9B inference at full width and depth
 # ---------------------------------------------------------------------------
 EXPECTED_LAUNCHES = {  # per call, at 38 layers: 12 local, 26 rglru
@@ -1624,12 +1815,18 @@ def main() -> int:
     ssd_kern = phase_ssd_kernels(built["ssd_faults"])
     das_path = phase_main()
     phase_cross(das_path["out"]["trees"])
+    fault_path = phase_faults(das_path["out"]["trees"])
+    sections = phase_sections()
     lm_path = phase_lm()
     phase_lm_cross()
     mamba_path = phase_mamba()
     phase_mamba_cross()
     checked = {"das": kern, "lm": lm_kern, "mamba": ssd_kern}
-    launched = {"das": das_path["launches"], "lm": lm_path["launches"],
+    # the DAS kernels' launches over its three paths: summary40 (phase
+    # 4), the fault path (5b) and the benchmark's sections (5c)
+    das_launches = {k: das_path["launches"][k] + fault_path["launches"][k]
+                    + sections["launches"][k] for k in das_path["launches"]}
+    launched = {"das": das_launches, "lm": lm_path["launches"],
                 "mamba": mamba_path["launches"]}
     rows = []
     for name, source, replaces, path in KERNELS:

@@ -1,18 +1,23 @@
 """Shared benchmark pipeline: the workload suite, the oracle datasets, the
 trained DAS policies and the per-mode evaluation grids, on one device.
 
-The port of the summary40 path of `benchmarks/common.py`. The two
-oracle sweeps (`MODE_ORACLE` and `MODE_ETF` over the training grid) are
+The port of `benchmarks/common.py` without its campaign layer (chunk
+checkpoints, watchdog, retry; ROADMAP queue 1 item 4). The two oracle
+sweeps (`MODE_ORACLE` and `MODE_ETF` over the training grid) are
 metric-independent, since only the labelling of pending samples reads
 the metric, so they run once and serve the datasets of both metrics.
 Every sweep is one `sim.run_batch` call; its wall time, super-steps,
 retired events and health counters are kept in `Bench.sweeps`.
 
 A `Bench` holds its caches itself, so two pipelines in one process (the
-GPU run and a CPU cross-check, say) never share results.
+GPU run and a CPU cross-check, say) never share results. The sections
+(`fig2`, `fig3`, `table2`, `summary40`, `heuristic`, `overhead`,
+`faults`) each take one, so `bench.run` trains DAS once for all.
 """
 from __future__ import annotations
 
+import argparse
+import os
 import time
 from typing import Dict, List, Sequence, Tuple
 
@@ -23,6 +28,9 @@ from repro_torch.core import das, oracle, simulator as sim, workloads
 from repro_torch.core.device import resolve
 
 N_INSTANCES = 60          # frames per workload, as the reference's default
+# the training grid with REPRO_BENCH_FULL=0, as the reference's
+SUBSET_MIXES = [0, 1, 2, 3, 4, 5, 8, 12, 17, 22]
+SUBSET_RATES = [0, 3, 5, 7, 9, 11, 12, 13]
 
 
 class Bench:
@@ -52,23 +60,30 @@ class Bench:
 
     # -- sweeps ------------------------------------------------------------
     def sweep(self, mode: int, stacked: workloads.FlatWorkload, tree=None,
-              rate_threshold=1e9, label: str = "") -> sim.SimResult:
-        """One batched sweep; returns the result as numpy arrays."""
+              rate_threshold=1e9, plan=None, label: str = "",
+              cells: Sequence[Tuple[int, int]] | None = None
+              ) -> sim.SimResult:
+        """One batched sweep (`plan`: a `faults.FaultPlan`, shared or
+        stacked); returns the result as numpy arrays. Stalled cells and
+        dropped jobs are reported by name (`report_health`)."""
         tel: List[Dict] = []
         t0 = time.perf_counter()
         res = sim.run_batch(mode, stacked, self.params, tree=tree,
-                            rate_threshold=rate_threshold,
+                            rate_threshold=rate_threshold, plan=plan,
                             device=self.device, telemetry=tel)
         res = sim.to_numpy(res)    # waits for the device
         wall = time.perf_counter() - t0
+        label = label or sim.MODE_NAMES[mode]
+        rep = report_health(res, label=label, cells=cells)
         self.sweeps.append({
-            "label": label or sim.MODE_NAMES[mode],
+            "label": label,
             "mode": sim.MODE_NAMES[mode],
             "scenarios": int(res.n_done.shape[0]),
             "wall_s": wall,
             "steps": sum(t["steps"] for t in tel),
             "events": sum(t["events"] for t in tel),
-            **health(res),
+            **{k: rep[k] for k in ("stalled", "unfinished", "ready_drop",
+                                   "dropped_jobs", "dropped_tasks")},
         })
         return res
 
@@ -113,14 +128,26 @@ class Bench:
             self._cells[key] = self.suite.build(mix_idx, rate_idx)
         return self._cells[key]
 
+    def eval_cell(self, mix_idx: int, rate_idx: int, mode: int, tree=None,
+                  rate_threshold: float = 1e9) -> sim.SimResult:
+        """One scenario through `sim.run`; a numpy `SimResult` of
+        scalars."""
+        return sim.to_numpy(sim.run(
+            mode, self.cell_workload(mix_idx, rate_idx), self.params,
+            tree=tree, rate_threshold=rate_threshold, device=self.device))
+
     def eval_grid(self, cells: Sequence[Tuple[int, int]], mode: int,
-                  tree=None, label: str = "") -> sim.SimResult:
+                  tree=None, rate_threshold=1e9,
+                  label: str = "") -> sim.SimResult:
         """One batched sweep of `mode` over `[(mix_idx, rate_idx), ...]`;
-        a numpy `SimResult` with one row per cell, in order."""
+        a numpy `SimResult` with one row per cell, in order.
+        `rate_threshold` is a scalar or one value per cell."""
         stacked = workloads.stack_workloads(
             [self.cell_workload(mi, ri) for mi, ri in cells])
         return self.sweep(mode, stacked, tree=tree,
-                          label=label or f"grid {sim.MODE_NAMES[mode]}")
+                          rate_threshold=rate_threshold,
+                          label=label or f"grid {sim.MODE_NAMES[mode]}",
+                          cells=cells)
 
     def eval_modes_grid(self, cells: Sequence[Tuple[int, int]],
                         with_fs: bool = False) -> Dict[str, sim.SimResult]:
@@ -141,9 +168,89 @@ class Bench:
         return out
 
 
-def health(res: sim.SimResult) -> Dict[str, int]:
-    """Counters that must be zero on a clean sweep."""
-    unfinished = int((np.asarray(res.stall_reason) != sim.STALL_NONE).sum())
-    return {"stalled": int(np.asarray(res.stalled).sum()),
-            "unfinished": unfinished,
-            "ready_drop": int(np.asarray(res.ready_drop).sum())}
+def _env_int(name: str, default: int) -> int:
+    """A positive-integer environment knob; anything else is an error."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return default
+    try:
+        val = int(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not an integer "
+                         f"(default {default})") from None
+    if val <= 0:
+        raise ValueError(f"{name}={val} must be a positive integer")
+    return val
+
+
+def env_config() -> Dict:
+    """The reference's two size knobs, read at call time:
+    `REPRO_BENCH_INSTANCES` (frames per workload, default 60) and
+    `REPRO_BENCH_FULL=0` (train on the 10 x 8 subset instead of the
+    full 40 x 14 grid; summary40 then takes 14 mixes)."""
+    full = os.environ.get("REPRO_BENCH_FULL", "1") != "0"
+    return {"n_instances": _env_int("REPRO_BENCH_INSTANCES", N_INSTANCES),
+            "full_grid": full,
+            "train_mixes": None if full else SUBSET_MIXES,
+            "train_rates": None if full else SUBSET_RATES}
+
+
+def bench_from_env(device="cuda") -> Bench:
+    """A `Bench` sized by `env_config()`."""
+    cfg = env_config()
+    return Bench(device, n_instances=cfg["n_instances"],
+                 train_mixes=cfg["train_mixes"],
+                 train_rates=cfg["train_rates"])
+
+
+def cli(description: str, argv=None, extra=()):
+    """Parse a section's command line: `--device` (default cuda), `--csv`
+    and the section's own flags `extra` ((flag, help) pairs)."""
+    ap = argparse.ArgumentParser(description=description)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--csv", action="store_true",
+                    help="emit name,us_per_call,derived CSV lines")
+    for flag, help_ in extra:
+        ap.add_argument(flag, action="store_true", help=help_)
+    return ap.parse_args(argv)
+
+
+_STALL_REASONS = {sim.STALL_DEADLOCK: "deadlock",
+                  sim.STALL_BUDGET: "step-budget"}
+
+
+def report_health(res: sim.SimResult, label: str = "",
+                  cells: Sequence[Tuple[int, int]] | None = None) -> Dict:
+    """The health counters of one batched numpy result, which must be
+    zero on a clean sweep (`stalled`, `unfinished`: any stall reason,
+    `ready_drop`, and without faults `dropped_jobs` / `dropped_tasks`),
+    with the stalled scenarios and those with dropped jobs named (index,
+    and (mix, rate) when `cells` is known) and printed: either silently
+    skews an average."""
+    def where(k):
+        k = int(k)
+        return (k, tuple(cells[k])) if cells is not None else (k,)
+
+    reason = np.asarray(res.stall_reason)
+    stalled_m = np.asarray(res.stalled) | (reason != sim.STALL_NONE)
+    jobs = np.asarray(res.n_dropped_jobs)
+    tasks = np.asarray(res.n_dropped_tasks)
+    stalled = [(*where(k), _STALL_REASONS.get(int(reason[k]), "deadlock"))
+               for k in np.flatnonzero(stalled_m)]
+    dropped = [(*where(k), int(jobs[k]), int(tasks[k]))
+               for k in np.flatnonzero((jobs > 0) | (tasks > 0))]
+    out = {"stalled": int(np.asarray(res.stalled).sum()),
+           "unfinished": int(stalled_m.sum()),
+           "ready_drop": int(np.asarray(res.ready_drop).sum()),
+           "dropped_jobs": int(jobs.sum()), "dropped_tasks": int(tasks.sum()),
+           "stalled_at": stalled, "dropped_at": dropped}
+    for what, entries in (("stalled cell(s), averages exclude unfinished "
+                           "work", stalled),
+                          ("scenario(s) with dropped jobs", dropped)):
+        if entries:
+            print(f"# health [{label}]: {len(entries)} {what}:")
+            for e in entries[:8]:
+                print(f"#   scenario {e}")
+            if len(entries) > 8:
+                print(f"#   ... and {len(entries) - 8} more")
+    return out

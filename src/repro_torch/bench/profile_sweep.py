@@ -1,10 +1,13 @@
 """Where a super-step's time goes on the GPU, eager and captured.
 
     python -m repro_torch.bench.profile_sweep [--mode ETF] [--steps 64]
+                                              [--faults]
 
 Builds one oracle-sized sweep (40 mixes x 14 rates, 60 frames per
-workload) and runs one block of `sim.POLL_EVERY` super-steps eagerly to
-warm up. Then it traces `--steps` eager super-steps with `torch.profiler`,
+workload), or with `--faults` the fault path's sweep (the faults
+section's cell under `faults.stress_plans()`, 16 scenarios, every fault
+phase built), and runs one block of `sim.POLL_EVERY` super-steps eagerly
+to warm up. Then it traces `--steps` eager super-steps with `torch.profiler`,
 records one block in a CUDA graph as the simulator does, and traces
 `--steps` more as replays of it (`--steps` a multiple of `POLL_EVERY`).
 It prints one JSON line with both sets of numbers: wall and device-busy
@@ -22,7 +25,8 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.core import simulator as sim, workloads
+from repro_torch.bench import faults as fault_bench
+from repro_torch.core import faults, simulator as sim, workloads
 from repro_torch.core.device import resolve
 
 
@@ -66,7 +70,7 @@ def _traced(fn, n_blocks: int) -> dict:
 
 
 def run(device="cuda", mode: int = sim.MODE_ETF, n_instances: int = 60,
-        steps: int = 64) -> dict:
+        steps: int = 64, with_faults: bool = False) -> dict:
     dev = resolve(device)
     if dev.type != "cuda":
         raise ValueError("profile_sweep measures the GPU; it has no CPU run")
@@ -76,19 +80,29 @@ def run(device="cuda", mode: int = sim.MODE_ETF, n_instances: int = 60,
     suite = workloads.default_suite(n_instances=n_instances)
     cells = [(m, r) for m in range(suite.mixes.shape[0])
              for r in range(len(suite.rates))]
+    plan, fcaps, pe_slow = None, faults.NO_CAPS, None
+    if with_faults:
+        host_plan = fault_bench.stress_plans()
+        cells = [(fault_bench.MIX_IDX, fault_bench.RATE_IDX)] * \
+            host_plan.pe_fail_at.shape[0]
+        fcaps = faults.plan_capabilities(host_plan)
     params = sim.make_params(device=dev)
     wl = sim._engine_workload(suite.build_many(cells), dev)
-    ctx = sim._make_ctx(params, wl)
+    ctx = sim._make_ctx(params, wl, drops=fcaps[1] or fcaps[2])
     tree = sim.DTree(*[x.expand(ctx.S, *x.shape)
                        for x in sim.always_fast_tree(dev)])
     thr = torch.full((ctx.S,), 1e9, device=dev)
     max_iters = 3 * ctx.T + ctx.I + 64
-    state = {"s": sim._init_state(ctx, wl),
+    if with_faults:
+        plan = faults.to_device(host_plan, dev)
+        max_iters = sim._fault_iter_bound(max_iters, ctx, plan)
+        pe_slow = faults.pe_slowdown(plan, params.pe_cluster)
+    state = {"s": sim._init_state(ctx, wl, pe_slow),
              "it": torch.zeros(ctx.S, dtype=torch.int64, device=dev)}
 
     def block(st, it):
         return sim._block(ctx, mode, params, st, wl, tree, thr, it,
-                          max_iters)
+                          max_iters, plan, fcaps)
 
     def eager():
         state["s"], state["it"] = block(state["s"], state["it"])
@@ -97,6 +111,7 @@ def run(device="cuda", mode: int = sim.MODE_ETF, n_instances: int = 60,
     n_blocks = steps // sim.POLL_EVERY
     out = {"device": torch.cuda.get_device_name(dev),
            "mode": sim.MODE_NAMES[mode], "lanes": ctx.S,
+           "fault_phases": fcaps,
            "eager": _traced(eager, n_blocks)}
     replay = sim._capture(block, state["s"], state["it"])
     out["graph"] = _traced(replay, n_blocks)
@@ -111,9 +126,12 @@ def main() -> None:
     ap.add_argument("--mode", default="ETF",
                     choices=[v for v in sim.MODE_NAMES.values()])
     ap.add_argument("--steps", type=int, default=64)
+    ap.add_argument("--faults", action="store_true",
+                    help="profile the fault path's sweep instead")
     args = ap.parse_args()
     mode = {v: k for k, v in sim.MODE_NAMES.items()}[args.mode]
-    print(json.dumps(run(args.device, mode, steps=args.steps)))
+    print(json.dumps(run(args.device, mode, steps=args.steps,
+                         with_faults=args.faults)))
 
 
 if __name__ == "__main__":

@@ -25,15 +25,20 @@ DERIVED = ("speedup_vs_etf_low", "edp_red_vs_etf_low",
 
 
 def run(device="cuda", n_instances: int = N_INSTANCES, n_mixes: int = 40,
-        train_mixes=None, train_rates=None) -> dict:
+        train_mixes=None, train_rates=None, bench: Bench | None = None,
+        csv: bool = False) -> dict:
     """The summary pipeline on `device`: both oracle datasets, the three
     DAS policies and six evaluation sweeps over `n_mixes` x 6 rates.
-    Returns the five `DERIVED` numbers, plus `n_cells`, the oracle
-    sample counts, each sweep's record, the three trees (as lists) and
-    the wall seconds."""
+    Returns the five `DERIVED` numbers, plus `n_mixes`, `n_cells`, the
+    oracle sample counts, the record of each sweep it ran, the three
+    trees (as lists) and the wall seconds. `bench` runs it on an existing
+    pipeline (its datasets and policies reused; the other arguments but
+    `n_mixes` ignored)."""
     t0 = time.perf_counter()
-    bench = Bench(device, n_instances=n_instances, train_mixes=train_mixes,
-                  train_rates=train_rates)
+    if bench is None:
+        bench = Bench(device, n_instances=n_instances,
+                      train_mixes=train_mixes, train_rates=train_rates)
+    first = len(bench.sweeps)
     # the paper labels pendings by "the target metric, such as the average
     # execution time OR energy-delay product": exec-trained policy for the
     # speedup claims, EDP-trained policy for the EDP claims.
@@ -61,13 +66,24 @@ def run(device="cuda", n_instances: int = N_INSTANCES, n_mixes: int = 40,
     trees = {"DAS": bench.das_policy().tree,
              "DAS-FS": bench.das_policy_auto().tree, "DAS-EDP": pol_edp.tree}
     out.update(
+        n_mixes=n_mixes,
         n_cells=len(cells),
         n_samples={m: len(bench.dataset(m)) for m in ("avg_exec_us", "edp")},
-        sweeps=bench.sweeps,
+        sweeps=bench.sweeps[first:],
         trees={k: {f: v.tolist() for f, v in t._asdict().items()}
                for k, t in trees.items()},
         wall_s=time.perf_counter() - t0,
     )
+    if csv:
+        print(f"summary40,{out['wall_s'] * 1e6:.0f}," + "|".join(
+            f"{out[k]:.3f}" for k in DERIVED[:4]))
+    else:
+        print(f"over {n_mixes} workload mixes ({len(cells)} cells): DAS vs "
+              f"ETF at low rates {out['speedup_vs_etf_low']:.2f}x, EDP "
+              f"{-out['edp_red_vs_etf_low'] * 100:+.0f}%; DAS vs LUT at high "
+              f"rates {out['speedup_vs_lut_high']:.2f}x, EDP "
+              f"{-out['edp_red_vs_lut_high'] * 100:+.0f}%; DAS >= both in "
+              f"{out['das_matches_best_frac'] * 100:.0f}% of cells")
     return out
 
 

@@ -31,9 +31,11 @@ class DASPolicy:
     test_accuracy: float
     n_train: int
 
-    def run(self, wl, params=None, device="cuda") -> sim.SimResult:
-        """Simulate this policy on `wl` (fault plans are not ported yet)."""
-        return sim.run(sim.MODE_DAS, wl, params, tree=self.tree,
+    def run(self, wl, params=None, plan=None,
+            device="cuda") -> sim.SimResult:
+        """Simulate this policy on `wl`; `plan` is an optional
+        `faults.FaultPlan` for fault-injection runs."""
+        return sim.run(sim.MODE_DAS, wl, params, tree=self.tree, plan=plan,
                        device=device)
 
 

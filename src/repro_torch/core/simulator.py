@@ -1,8 +1,7 @@
 """Scenario-batched discrete-event DSSoC simulator (DS3-style) in PyTorch.
 
-The port of `repro/core/simulator.py` without the fault path. Each
-scenario (one workload mix at one data rate) retires events in the
-reference's priority order:
+The port of `repro/core/simulator.py`. Each scenario (one workload mix
+at one data rate) retires events in the reference's priority order:
 
   1. a task completion whose finish time is due (finish <= now),
   2. a frame (application-instance) arrival that is due,
@@ -28,7 +27,7 @@ Engine
 ------
 There is one engine: the reference's masked super-step
 (`_masked_step`) with its scenario axis `[S]` written out. Each
-super-step runs the four phases with gates re-derived after each phase,
+super-step runs the phases with gates re-derived after each phase,
 so it retires the same event sequence as the reference's
 one-event-per-iteration loop, and `n_iters` still counts events. `run`
 is the engine with S = 1; `run_batch` cuts a sweep into fixed-shape
@@ -57,6 +56,24 @@ multiply-add that sets the schedule, the ETF latency polynomial, is a
 table (`soc.ETF_LAT_TABLE`). The energy accumulators are fused by XLA
 too; they do not feed the schedule, and agree with the reference to a
 relative 1e-6.
+
+Faults
+------
+`plan=` (a `faults.FaultPlan`, shared or stacked along `[S]`) threads the
+reference's fault model through the same step, with three more event
+classes between completions and arrivals: a *kill* (a PE failure or
+glitch revokes an assignment made before it; the task re-enters the
+FIFO tail within its retry budget, else its job drops), a *deadline*
+(a job still incomplete `deadline_us` after its arrival drops) and the
+*drop* inside both. The LUT falls back to the most energy-efficient
+cluster with a live PE, the ETF search masks dead PEs (`pe_alive`, the
+search kernel's mask), and a decision is taken only when the chosen
+scheduler has a feasible pair; otherwise time advances, to fault,
+repair and deadline instants too. Each chunk builds only the fault
+phases its plans can fire (`faults.plan_capabilities`, the union over
+the chunk's lanes): a left-out phase could never fire, so the results
+are those of the full machinery. `plan=None` runs the computation
+without any fault state; `faults.healthy_plan()` gives the same results.
 """
 from __future__ import annotations
 
@@ -65,6 +82,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import faults as flt
 from repro_torch.core import soc
 from repro_torch.core.device import resolve
 from repro_torch.core.workloads import (FRAME_KBITS, FlatWorkload,
@@ -205,11 +223,28 @@ class SimState(NamedTuple):
     log_policy: torch.Tensor   # flat [T] i8 (0 fast, 1 slow)
     log_agree: torch.Tensor    # flat [T] i8 (oracle: fast/slow identical)
     log_task: torch.Tensor     # flat [T] i64
+    # fault state: None without a plan; status gains 5 = dropped with
+    # its job
+    pe_alive: torch.Tensor | None = None   # [S, P] bool live PEs at `now`
+    pe_slow: torch.Tensor | None = None    # [S, P] f32 exec multiplier
+    assign_t: torch.Tensor | None = None   # flat [T] f32 decision time of
+    #   the live assignment; a fault at tau revokes assign_t < tau only
+    retries: torch.Tensor | None = None    # flat [T] i64 kills per task
+    kill_t: torch.Tensor | None = None     # flat [T] f32 last kill time
+    inst_rem: torch.Tensor | None = None   # flat [I] i64 unfinished tasks
+    job_dropped: torch.Tensor | None = None  # flat [I] bool
+    n_kills: torch.Tensor | None = None    # [S] i64 revoked assignments
+    n_retries: torch.Tensor | None = None  # [S] i64 kills re-enqueued
+    reexec_us: torch.Tensor | None = None  # [S] f32 executed work revoked
+    n_dropped_tasks: torch.Tensor | None = None  # [S] i64
+    recovery_us: torch.Tensor | None = None  # [S] f32 sum over recovered
+    #   tasks of (final finish - last kill)
+    n_recovered: torch.Tensor | None = None  # [S] i64
 
 
 class SimResult(NamedTuple):
     """Per-scenario results; every field has a leading [S] axis. The
-    fault fields are all zero until the fault path is ported."""
+    fault fields are zero without a plan."""
 
     avg_exec_us: torch.Tensor     # f32 mean instance latency
     makespan_us: torch.Tensor     # f32
@@ -268,9 +303,14 @@ class _Ctx(NamedTuple):
     first_pe: torch.Tensor    # [C] i64 first PE of each cluster
     lut_cluster: torch.Tensor  # [n_types] i64
     etf_lat: torch.Tensor     # [R_MAX + 1] f32 `soc.ETF_LAT_TABLE`
+    ar_t: torch.Tensor        # [T]
+    ar_i: torch.Tensor        # [I]
+    W: int                    # most tasks of one instance (drops only)
 
 
-def _make_ctx(p: SimParams, wl: FlatWorkload) -> _Ctx:
+def _make_ctx(p: SimParams, wl: FlatWorkload, drops: bool = False) -> _Ctx:
+    """`drops`: the fault path can drop jobs, which needs `W` (one host
+    read of the workload, before the loop)."""
     dev = p.exec_pe.device
     S, T = wl.task_type.shape
     I = wl.inst_arrival.shape[1]
@@ -278,6 +318,9 @@ def _make_ctx(p: SimParams, wl: FlatWorkload) -> _Ctx:
     def ar(n):
         return torch.arange(n, device=dev)
 
+    W = 0
+    if drops:
+        W = int(_inst_counts(wl, S, I).max()) if I else 0
     return _Ctx(
         S=S, T=T, Tp=-(-T // SEG) * SEG, I=I, P=p.pe_cluster.shape[0],
         C=p.cluster_pe_mask.shape[0], lane=ar(S), ar_r=ar(R_MAX),
@@ -285,7 +328,16 @@ def _make_ctx(p: SimParams, wl: FlatWorkload) -> _Ctx:
         ar_ms=ar(wl.succs.shape[2]), ar_mr=ar(wl.inst_roots.shape[2]),
         first_pe=p.cluster_pe_mask.int().argmax(1),
         lut_cluster=p.lut_cluster.long(),
-        etf_lat=torch.as_tensor(soc.ETF_LAT_TABLE, device=dev))
+        etf_lat=torch.as_tensor(soc.ETF_LAT_TABLE, device=dev),
+        ar_t=ar(T), ar_i=ar(I), W=W)
+
+
+def _inst_counts(wl: FlatWorkload, S: int, I: int) -> torch.Tensor:
+    """[S, I] valid tasks per instance."""
+    idx = torch.where(wl.task_valid, wl.inst_id, I)
+    return torch.zeros((S, I + 1), dtype=torch.int64,
+                       device=idx.device).scatter_add_(
+        1, idx, torch.ones_like(idx))[:, :I]
 
 
 def _lanes(buf: torch.Tensor, S: int) -> torch.Tensor:
@@ -424,26 +476,93 @@ def _avail_rows(p: SimParams, wl: FlatWorkload, s: SimState,
                             wl.out_kb, p.us_per_kb, p.pe_cluster, bases)
 
 
-def _etf_choice(ctx: _Ctx, s: SimState):
-    """Earliest-finish-time (slot, pe) over the ready buffer (Algorithm 1),
-    through the masked search kernel (first global minimum)."""
+def _etf_choice(ctx: _Ctx, s: SimState, alive=None):
+    """Earliest-finish-time (slot, pe, feasible) over the ready buffer
+    (Algorithm 1), through the masked search kernel (first global
+    minimum). `alive` [S, P] masks dead PEs out (the fault path)."""
     S = ctx.S
     ids = _lanes(s.ready_ids, S)
-    slot, pe, _ = _kops.etf_decide(_lanes(s.ready_avail, S),
-                                   _lanes(s.pe_free, S),
-                                   _lanes(s.ready_exec, S), s.now,
-                                   ids >= 0, None)
-    return slot.long(), pe.long()
+    slot, pe, ok = _kops.etf_decide(_lanes(s.ready_avail, S),
+                                    _lanes(s.pe_free, S),
+                                    _lanes(s.ready_exec, S), s.now,
+                                    ids >= 0, alive)
+    return slot.long(), pe.long(), ok
 
 
 def _lut_choice(ctx: _Ctx, p: SimParams, wl: FlatWorkload, s: SimState):
     """Fast scheduler: FIFO head -> most-energy-efficient cluster -> its
-    earliest-free PE."""
+    earliest-free PE. (slot, pe, None): it never fails."""
     S = ctx.S
     t = _lanes(s.ready_ids, S)[:, 0].clamp_min(0)
     cl = ctx.lut_cluster[_take(ctx, wl.task_type, t)]
     free = torch.where(p.cluster_pe_mask[cl], _lanes(s.pe_free, S), _INF)
-    return torch.zeros_like(t), free.argmin(1)
+    return torch.zeros_like(t), free.argmin(1), None
+
+
+def _lut_choice_degraded(ctx: _Ctx, p: SimParams, wl: FlatWorkload,
+                         s: SimState):
+    """Fault-aware fast scheduler: (slot, pe, feasible). Clusters are
+    ranked by `cluster_energy` among those with a live PE, so a dead
+    accelerator degrades to the next-best cluster (at last the CPUs,
+    which run every type). With every PE alive it is `_lut_choice`."""
+    S = ctx.S
+    head = _lanes(s.ready_ids, S)[:, 0]
+    t = head.clamp_min(0)
+    tt = _take(ctx, wl.task_type, t)
+    cl_alive = (p.cluster_pe_mask & s.pe_alive[:, None, :]).any(2)  # [S, C]
+    e = torch.where(cl_alive, p.cluster_energy[tt], _INF)
+    cl = e.argmin(1)
+    ok = (head >= 0) & torch.isfinite(_take(ctx, e, cl))
+    free = torch.where(p.cluster_pe_mask[cl] & s.pe_alive,
+                       _lanes(s.pe_free, S), _INF)
+    return torch.zeros_like(t), free.argmin(1), ok
+
+
+class _Choice(NamedTuple):
+    """What a decision reads of the state: the features, the policy's
+    pick (DAS, threshold), and each scheduler's (slot, pe, feasible)."""
+    feats: torch.Tensor | None
+    use_slow: torch.Tensor | None
+    lut: tuple | None
+    etf: tuple | None
+
+
+def _choose(ctx: _Ctx, mode: int, p: SimParams, wl: FlatWorkload,
+            s: SimState, tree: DTree, rate_threshold: torch.Tensor,
+            alive, decide: bool, ch: _Choice | None = None) -> _Choice:
+    """Fill in what the mode reads of `s`: everything the decide needs
+    (`decide`), or only what the feasibility check needs (the features
+    only for DAS and the threshold; the LUT alone for the oracle). `ch`
+    holds what is known of the same state already; it is not computed
+    again (one search serves the check and the decide). With a plan the
+    LUT is the degraded one."""
+    feats, use_slow, lut, etf = ch if ch is not None else (None,) * 4
+    mixed = mode in (MODE_DAS, MODE_THRESHOLD)
+    if feats is None and (decide or mixed):
+        feats = _features(ctx, p, wl, s)
+    if use_slow is None and mode == MODE_DAS:
+        use_slow = tree.predict(feats).bool()
+    elif use_slow is None and mode == MODE_THRESHOLD:
+        use_slow = feats[:, FEAT_RATE] >= rate_threshold
+    if lut is None and mode not in (MODE_ETF, MODE_ETF_IDEAL):
+        lut = (_lut_choice(ctx, p, wl, s) if s.pe_alive is None
+               else _lut_choice_degraded(ctx, p, wl, s))
+    if etf is None and mode != MODE_LUT and (decide
+                                             or mode != MODE_ORACLE):
+        etf = _etf_choice(ctx, s, alive)
+    return _Choice(feats, use_slow, lut, etf)
+
+
+def _feasible(mode: int, ch: _Choice) -> torch.Tensor:
+    """[S] bool: the scheduler the mode would invoke has a feasible
+    (task, PE) pair (the reference's `_can_schedule`). The fast path
+    reads only the FIFO head, so a head whose every capable cluster is
+    dead blocks the queue until a repair or its job's deadline."""
+    if mode in (MODE_LUT, MODE_ORACLE):
+        return ch.lut[2]
+    if mode in (MODE_ETF, MODE_ETF_IDEAL):
+        return ch.etf[2]
+    return torch.where(ch.use_slow, ch.etf[2], ch.lut[2])
 
 
 # ---------------------------------------------------------------------------
@@ -471,6 +590,10 @@ def _push_ready_many(ctx: _Ctx, p: SimParams, wl: FlatWorkload,
     if rows_avail is None:
         rows_avail = _avail_rows(p, wl, s, t, bases)      # [S, K, P]
     rows_exec = p.exec_pe[_take(ctx, wl.task_type, t)]    # [S, K, P]
+    if s.pe_slow is not None:
+        # cluster slowdown stretches the cached rows at push time (x1.0
+        # when healthy keeps the healthy plan bit-exact)
+        rows_exec = rows_exec * s.pe_slow[:, None, :]
     want = do_push.long()
     before = s.ready_cnt[:, None] + want.cumsum(1) - want
     can = do_push & (before < R_MAX)
@@ -540,6 +663,10 @@ def _assign(ctx: _Ctx, p: SimParams, s: SimState, slot, pe, lat, sched_e,
         n_sched=s.n_sched + act,
         d_ptr=d + act,
     )
+    if s.assign_t is not None:
+        # a fault at tau revokes live assignments with assign_t < tau, so
+        # a decision taken at a fault instant is never killed by it
+        _gset(s.assign_t, ctx, active, task, s.now)
     return _pop_slot(ctx, s, slot, active)
 
 
@@ -551,6 +678,18 @@ def _process_completion(ctx: _Ctx, p: SimParams, wl: FlatWorkload,
     _gfill(s.status, ctx, active, t, 4)
     _gfill(s.fin_run, ctx, active, t, _INF)
     s = s._replace(n_running=s.n_running - act, n_done=s.n_done + act)
+    if s.inst_rem is not None:
+        _gadd(s.inst_rem, ctx, active, _take(ctx, wl.inst_id, t),
+              -torch.ones_like(t))
+        # a killed task finishing at last: recovery runs from its last
+        # kill to its final finish
+        rec = active & (_take(ctx, _lanes(s.retries, S), t) > 0)
+        s = s._replace(
+            recovery_us=torch.where(
+                rec, s.recovery_us + (_take(ctx, _lanes(s.finish, S), t)
+                                      - _take(ctx, _lanes(s.kill_t, S), t)),
+                s.recovery_us),
+            n_recovered=s.n_recovered + rec.long())
     # restore the fin_seg invariant: rescan only the retired task's segment
     seg = t // SEG
     blk = _lanes(s.fin_run, S).gather(1, seg[:, None] * SEG + ctx.ar_seg)
@@ -597,9 +736,223 @@ def _process_arrival(ctx: _Ctx, p: SimParams, wl: FlatWorkload,
 
 
 # ---------------------------------------------------------------------------
+# fault events (kill / deadline / drop): built only for a plan that can
+# fire them (`faults.plan_capabilities`)
+# ---------------------------------------------------------------------------
+def _pending_kill(ctx: _Ctx, plan: flt.FaultPlan, s: SimState):
+    """(due [S], task [S]): the earliest fault instant that revokes a live
+    assignment, a running task whose PE fails or glitches at tau with
+    `assign_t < tau <= now`. Ties go to the lowest task id."""
+    S = ctx.S
+    taus = flt.kill_times(plan)                          # [S, P, K]
+    pe = _lanes(s.pe_of, S).clamp_min(0)                 # [S, T]
+    t_taus = taus.gather(1, pe[..., None].expand(-1, -1, taus.shape[2]))
+    running = _lanes(s.status, S) == 3
+    due = (running[..., None]
+           & (_lanes(s.assign_t, S)[..., None] < t_taus)
+           & (t_taus <= s.now[:, None, None]))           # [S, T, K]
+    tau_t = torch.where(due, t_taus, _INF).amin(2)       # [S, T]
+    return due.flatten(1).any(1), tau_t.argmin(1)
+
+
+def _ordered_add(ctx: _Ctx, buf: torch.Tensor, mask: torch.Tensor,
+                 idx: torch.Tensor, val: torch.Tensor) -> None:
+    """`buf[lane, idx[lane, t]] += val[lane, t]` where `mask` [S, T], in
+    ascending task id per lane, as the reference's scatter-add applies
+    them (the order of float adds to one row sets its bits; CUDA's
+    accumulating `index_put_` keeps none). The masked tasks, at most
+    `ctx.W` a lane (one instance's), are compacted without a host sync,
+    then added one rank at a time."""
+    S, W = ctx.S, ctx.W
+    rank = mask.long().cumsum(1) - 1
+    pos = torch.where(mask & (rank < W), rank, W)
+    order = torch.zeros((S, W + 1), dtype=torch.int64,
+                        device=mask.device).scatter_(
+        1, pos, ctx.ar_t.expand(S, -1))[:, :W]
+    ok = torch.arange(W, device=mask.device) < mask.sum(1, keepdim=True)
+    fi = _flat(buf, ctx, ok, idx.gather(1, order)).view(S, W)
+    ov = val.gather(1, order)
+    # rank w of every lane: distinct rows (inactive ones write the spare
+    # row, never read), so a plain read-add-write is one add per row,
+    # without the sort an accumulating `index_put_` does on CUDA
+    for w in range(W):
+        i = fi[:, w]
+        buf.index_put_((i,), buf[i] + ov[:, w])
+
+
+def _drop_instance(ctx: _Ctx, p: SimParams, wl: FlatWorkload, s: SimState,
+                   inst: torch.Tensor, active: torch.Tensor) -> SimState:
+    """Cancel every unfinished task of instance `inst` [S] (deadline miss
+    or retry exhaustion). Running victims roll back their unexecuted tail
+    (busy time, energy); queued ones leave the FIFO with the survivors'
+    order kept; every victim retires as status 5, so `n_done` still
+    converges."""
+    S, P = ctx.S, ctx.P
+    inst = inst.clamp_min(0)
+    status = _lanes(s.status, S)
+    victim = ((wl.inst_id == inst[:, None]) & wl.task_valid & (status < 4)
+              & active[:, None])                           # [S, T]
+    n_v = victim.sum(1)
+    runn = victim & (status == 3)
+    pe = _lanes(s.pe_of, S).clamp_min(0)
+    start = _lanes(s.start, S)
+    finish = _lanes(s.finish, S)
+    exec_total = torch.where(runn, finish - start, 0.0)
+    executed = torch.where(runn, torch.minimum(
+        torch.maximum(s.now[:, None] - start, torch.zeros_like(start)),
+        exec_total), 0.0)
+    unexec = exec_total - executed
+    _ordered_add(ctx, s.pe_busy, runn, pe, -unexec)
+    e_back = torch.where(runn, unexec * p.pe_power[pe], 0.0).sum(1)
+    # PEs that lost a victim rebuild pe_free from surviving assignments;
+    # the others keep their exact value
+    pe_ix = torch.where(runn, pe, P)
+    pe_hit = torch.zeros((S, P + 1), dtype=torch.bool,
+                         device=pe.device).scatter_(
+        1, pe_ix, torch.ones_like(runn))[:, :P]
+    surv = (status == 3) & ~victim
+    surv_fin = torch.full((S, P + 1), _NEG, device=pe.device).scatter_reduce(
+        1, torch.where(surv, pe, P), finish, "amax")[:, :P]
+    free = _lanes(s.pe_free, S)
+    free.copy_(torch.where(pe_hit, torch.maximum(surv_fin, s.now[:, None]),
+                           free))
+
+    status.copy_(torch.where(victim, 5, status))
+    # -inf keeps dropped tasks out of the makespan and instance maxima
+    finish.copy_(torch.where(victim, _NEG, finish))
+    start.copy_(torch.where(victim, _INF, start))
+    assign_t = _lanes(s.assign_t, S)
+    assign_t.copy_(torch.where(victim, _INF, assign_t))
+    fin_run = _lanes(s.fin_run, S)
+    fin_run[:, :ctx.T].copy_(torch.where(runn, _INF, fin_run[:, :ctx.T]))
+    # victims may span many segments: rebuild every segment minimum (the
+    # invariant's own value where nothing changed)
+    _lanes(s.fin_seg, S).copy_(fin_run.view(S, -1, SEG).amin(2))
+
+    # purge victims from the FIFO, survivors first in their order
+    ids = _lanes(s.ready_ids, S)
+    in_q = ids >= 0
+    keep = in_q & ~victim.gather(1, ids.clamp_min(0))
+    perm = torch.argsort((~keep).to(torch.int32), dim=1, stable=True)
+    new_cnt = keep.sum(1)
+    ids_p = torch.where(ctx.ar_r < new_cnt[:, None], ids.gather(1, perm), -1)
+    ids.copy_(torch.where(active[:, None], ids_p, ids))
+    rperm = perm[..., None].expand(-1, -1, P)
+    for rows in (_lanes(s.ready_avail, S), _lanes(s.ready_exec, S)):
+        rows.copy_(torch.where(active[:, None, None], rows.gather(1, rperm),
+                               rows))
+    _gfill(s.inst_rem, ctx, active, inst, 0)
+    _gfill(s.job_dropped, ctx, active, inst, True)
+    return s._replace(
+        task_energy=torch.where(active, s.task_energy - e_back,
+                                s.task_energy),
+        n_running=s.n_running - runn.sum(1),
+        n_done=s.n_done + n_v,
+        n_dropped_tasks=s.n_dropped_tasks + n_v,
+        ready_cnt=torch.where(active, new_cnt, s.ready_cnt))
+
+
+def _process_kill(ctx: _Ctx, plan: flt.FaultPlan, p: SimParams,
+                  wl: FlatWorkload, s: SimState, t: torch.Tensor,
+                  active: torch.Tensor) -> SimState:
+    """Revoke the live assignment of running task `t` [S] at `now` (which
+    sits on the fault instant: the advance stops at every plan time).
+    Executed work is wasted (`reexec_us`), its energy and busy time stay;
+    the unexecuted tail rolls back. Within the retry budget the task
+    re-enters the FIFO tail at `now`; past it its whole job drops."""
+    S = ctx.S
+    t = t.clamp_min(0)
+    pe_of = _lanes(s.pe_of, S)
+    finish = _lanes(s.finish, S)
+    pe = _take(ctx, pe_of, t).clamp_min(0)
+    start_t = _take(ctx, _lanes(s.start, S), t)
+    exec_total = _take(ctx, finish, t) - start_t
+    executed = torch.minimum(torch.maximum(s.now - start_t,
+                                           torch.zeros_like(start_t)),
+                             exec_total)
+    unexec = exec_total - executed
+    act = active.long()
+    exhausted = _take(ctx, _lanes(s.retries, S), t) >= plan.max_retries
+    rk = active & ~exhausted
+    dr = active & exhausted
+    others = ((_lanes(s.status, S) == 3) & (pe_of == pe[:, None])
+              & (ctx.ar_t != t[:, None]))
+    new_free = torch.maximum(torch.where(others, finish, _NEG).amax(1),
+                             s.now)
+
+    _gfill(s.status, ctx, active, t, 0)
+    _gfill(s.start, ctx, active, t, _INF)
+    _gfill(s.finish, ctx, active, t, _INF)
+    _gfill(s.fin_run, ctx, active, t, _INF)
+    _gfill(s.pe_of, ctx, active, t, -1)
+    _gfill(s.assign_t, ctx, active, t, _INF)
+    _gset(s.pe_free, ctx, active, pe, new_free)
+    _gadd(s.pe_busy, ctx, active, pe, -unexec)
+    _gadd(s.retries, ctx, active, t, torch.ones_like(t))
+    _gset(s.kill_t, ctx, active, t, s.now)
+    s = s._replace(
+        n_running=s.n_running - act,
+        task_energy=torch.where(active,
+                                s.task_energy - unexec * p.pe_power[pe],
+                                s.task_energy),
+        n_kills=s.n_kills + act,
+        n_retries=s.n_retries + rk.long(),
+        reexec_us=torch.where(active, s.reexec_us + executed, s.reexec_us))
+    # restore the fin_seg invariant for the killed task's segment
+    seg = t // SEG
+    blk = _lanes(s.fin_run, S).gather(1, seg[:, None] * SEG + ctx.ar_seg)
+    _gset(s.fin_seg, ctx, active, seg, blk.amin(1))
+    # retry: back to the FIFO tail, its row re-based at now (its preds
+    # are all done, so the row can be computed again)
+    s = _push_ready_many(ctx, p, wl, s, t[:, None], s.now[:, None],
+                         rk[:, None])
+    # exhausted: the whole job goes
+    return _drop_instance(ctx, p, wl, s, _take(ctx, wl.inst_id, t), dr)
+
+
+def _pending_deadline(ctx: _Ctx, plan: flt.FaultPlan, wl: FlatWorkload,
+                      s: SimState):
+    """(due [S], inst [S]): the earliest arrived, unfinished instance past
+    its deadline. Ties go to the lowest instance id."""
+    pend = ((ctx.ar_i < s.arr_ptr[:, None]) & wl.inst_valid
+            & (_lanes(s.inst_rem, ctx.S) > 0))
+    dl = torch.where(pend, wl.inst_arrival + plan.deadline_us[:, None], _INF)
+    due = pend & (dl <= s.now[:, None])
+    return due.any(1), torch.where(due, dl, _INF).argmin(1)
+
+
+def _next_wakeup(ctx: _Ctx, plan: flt.FaultPlan, wl: FlatWorkload,
+                 s: SimState, fcaps: tuple) -> torch.Tensor:
+    """[S] earliest strictly future fault instant, repair or pending job
+    deadline: extra advance targets, so `now` lands on each fault event.
+    Targets a capability rules out are left out (each would be inf)."""
+    can_die, can_kill, has_deadline = fcaps
+    parts = []
+    if can_die:
+        parts += [plan.pe_fail_at, plan.pe_repair_at]
+    if can_kill:
+        parts.append(plan.transient_at.flatten(1))
+    out = torch.full_like(s.now, _INF)
+    if parts:
+        times = torch.cat(parts, 1)
+        out = torch.where(times > s.now[:, None], times, _INF).amin(1)
+    if has_deadline:
+        pend = ((ctx.ar_i < s.arr_ptr[:, None]) & wl.inst_valid
+                & (_lanes(s.inst_rem, ctx.S) > 0))
+        dl = torch.where(pend, wl.inst_arrival + plan.deadline_us[:, None],
+                         _INF)
+        out = torch.minimum(out, torch.where(dl > s.now[:, None], dl,
+                                             _INF).amin(1))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
-def _init_state(ctx: _Ctx, wl: FlatWorkload) -> SimState:
+def _init_state(ctx: _Ctx, wl: FlatWorkload,
+                pe_slow: torch.Tensor | None = None) -> SimState:
+    """The state at t = 0; with `pe_slow` [S, P] (a plan's slowdowns),
+    the fault state too."""
     S, T, Tp, P = ctx.S, ctx.T, ctx.Tp, ctx.P
     dev = ctx.lane.device
     f32, i64 = torch.float32, torch.int64
@@ -612,6 +965,18 @@ def _init_state(ctx: _Ctx, wl: FlatWorkload) -> SimState:
 
     pred_rem = flat(T, dtype=i64)
     _lanes(pred_rem, S).copy_(wl.n_preds)
+    faults = {}
+    if pe_slow is not None:
+        inst_rem = flat(ctx.I, dtype=i64)
+        _lanes(inst_rem, S).copy_(_inst_counts(wl, S, ctx.I))
+        faults = dict(
+            pe_alive=torch.ones((S, P), dtype=torch.bool, device=dev),
+            pe_slow=pe_slow, assign_t=flat(T, fill=_INF),
+            retries=flat(T, dtype=i64), kill_t=flat(T), inst_rem=inst_rem,
+            job_dropped=flat(ctx.I, dtype=torch.bool), n_kills=lane(),
+            n_retries=lane(), reexec_us=lane(0.0, f32),
+            n_dropped_tasks=lane(), recovery_us=lane(0.0, f32),
+            n_recovered=lane())
     return SimState(
         now=lane(0.0, f32), stalled=lane(False, torch.bool),
         sched_free=lane(0.0, f32), arr_ptr=lane(), n_done=lane(),
@@ -629,13 +994,14 @@ def _init_state(ctx: _Ctx, wl: FlatWorkload) -> SimState:
         log_feat=flat(T, N_FEATURES), log_policy=flat(T, dtype=torch.int8),
         log_agree=flat(T, dtype=torch.int8),
         log_task=flat(T, fill=-1, dtype=i64),
+        **faults,
     )
 
 
 def _decide(ctx: _Ctx, mode: int, p: SimParams, wl: FlatWorkload,
-            s: SimState, tree: DTree, rate_threshold: torch.Tensor,
-            active: torch.Tensor) -> SimState:
-    feats = _features(ctx, p, wl, s)
+            s: SimState, ch: _Choice, active: torch.Tensor) -> SimState:
+    """One decision per active lane from `ch` (`_choose` of `s`)."""
+    feats = ch.feats
     etf_lat = ctx.etf_lat[s.ready_cnt]
     etf_e = etf_lat * float(soc.SCHED_POWER_W)
     lut_lat = float(soc.LUT_LATENCY_US)
@@ -643,21 +1009,21 @@ def _decide(ctx: _Ctx, mode: int, p: SimParams, wl: FlatWorkload,
     zero = torch.zeros_like(s.ready_cnt)
 
     if mode == MODE_LUT:
-        slot, pe = _lut_choice(ctx, p, wl, s)
+        slot, pe, _ = ch.lut
         return _assign(ctx, p, s, slot, pe, lut_lat, lut_e, zero, feats,
                        zero, active)
     if mode == MODE_ETF:
-        slot, pe = _etf_choice(ctx, s)
+        slot, pe, _ = ch.etf
         return _assign(ctx, p, s, slot, pe, etf_lat, etf_e, zero + 1, feats,
                        zero, active)
     if mode == MODE_ETF_IDEAL:
-        slot, pe = _etf_choice(ctx, s)
+        slot, pe, _ = ch.etf
         return _assign(ctx, p, s, slot, pe, 0.0, 0.0, zero + 1, feats, zero,
                        active)
     if mode == MODE_ORACLE:
         # run both, follow the fast one, log whether they agree
-        slot_f, pe_f = _lut_choice(ctx, p, wl, s)
-        slot_s, pe_s = _etf_choice(ctx, s)
+        slot_f, pe_f, _ = ch.lut
+        slot_s, pe_s, _ = ch.etf
         ids = _lanes(s.ready_ids, ctx.S)
         agree = ((_take(ctx, ids, slot_f) == _take(ctx, ids, slot_s))
                  & (pe_f == pe_s)).long()
@@ -665,16 +1031,15 @@ def _decide(ctx: _Ctx, mode: int, p: SimParams, wl: FlatWorkload,
                        agree, active)
 
     if mode == MODE_DAS:
-        use_slow = tree.predict(feats).bool()
         cls_e = float(soc.DAS_CLS_ENERGY_UJ)
     elif mode == MODE_THRESHOLD:
-        use_slow = feats[:, FEAT_RATE] >= rate_threshold
         cls_e = 0.0
     else:
         raise ValueError(f"unknown mode {mode}")
 
-    slot_f, pe_f = _lut_choice(ctx, p, wl, s)
-    slot_s, pe_s = _etf_choice(ctx, s)
+    use_slow = ch.use_slow
+    slot_f, pe_f, _ = ch.lut
+    slot_s, pe_s, _ = ch.etf
     slot = torch.where(use_slow, slot_s, slot_f)
     pe = torch.where(use_slow, pe_s, pe_f)
     lat = torch.where(use_slow, etf_lat, lut_lat)
@@ -685,58 +1050,103 @@ def _decide(ctx: _Ctx, mode: int, p: SimParams, wl: FlatWorkload,
 
 def _masked_step(ctx: _Ctx, mode: int, p: SimParams, s: SimState,
                  wl: FlatWorkload, tree: DTree, rate_threshold: torch.Tensor,
-                 run: torch.Tensor):
+                 run: torch.Tensor, plan: flt.FaultPlan | None = None,
+                 fcaps: tuple = flt.NO_CAPS):
     """One super-step of gated phases; returns (s, ev).
 
-    Phases run in the reference's priority order (completion > arrival >
-    decide > advance) with gates re-derived after each phase, so one step
-    retires several consecutive events when they would have fired
-    back-to-back anyway; `ev` (events retired, 0..4) keeps `n_iters`
-    equal to the event count. `run=False` freezes a lane.
+    Phases run in the reference's priority order (completion > kill >
+    deadline > arrival > decide > advance) with gates re-derived after
+    each phase, so one step retires several consecutive events when they
+    would have fired back-to-back anyway; `ev` (events retired, 0..6)
+    keeps `n_iters` equal to the event count. `run=False` freezes a lane.
+    The kill and deadline phases exist only where `fcaps` (the chunk's
+    `faults.plan_capabilities`) says they can fire; with `can_die` the
+    step refreshes the live-PE mask and a decision also needs a feasible
+    pair.
     """
     I = ctx.I
+    can_die, can_kill, has_deadline = fcaps
+    if can_die:
+        s = s._replace(pe_alive=flt.alive_at(plan, s.now))
+    alive = s.pe_alive if can_die else None
     fin_idx, fin_val = _next_completion(ctx, s)
     c = run & (fin_val <= s.now)
     s = _process_completion(ctx, p, wl, s, c, fin_idx)
+    ev = c.long()
 
     # a completion tie leaves another completion due: everything below
     # waits for the next step, as the one-event loop would
     next_fin = _lanes(s.fin_seg, ctx.S).amin(1)
     no_c = ~(next_fin <= s.now)
+    gate = run & no_c
+    # a second due kill or deadline blocks everything after its phase
+    if can_kill:
+        k_due, k_task = _pending_kill(ctx, plan, s)
+        k = gate & k_due
+        s = _process_kill(ctx, plan, p, wl, s, k_task, k)
+        gate = gate & ~_pending_kill(ctx, plan, s)[0]
+        ev = ev + k.long()
+    pre_arrival = gate
+    if has_deadline:
+        dl_due, dl_inst = _pending_deadline(ctx, plan, wl, s)
+        dl = gate & dl_due
+        s = _drop_instance(ctx, p, wl, s, dl_inst, dl)
+        pre_arrival = gate & ~_pending_deadline(ctx, plan, wl, s)[0]
+        ev = ev + dl.long()
 
     def arr_due(st):
         return (st.arr_ptr < wl.n_insts) & (
             _take(ctx, wl.inst_arrival, st.arr_ptr.clamp_max(I - 1)) <= st.now)
 
-    a = run & no_c & arr_due(s)
+    a = pre_arrival & arr_due(s)
     s = _process_arrival(ctx, p, wl, s, a)
 
-    # same-timestamp arrivals: the next one blocks the decide phase
-    no_a = ~arr_due(s)
-    d = run & no_c & no_a & (s.ready_cnt > 0)
-    s = _decide(ctx, mode, p, wl, s, tree, rate_threshold, d)
+    # same-timestamp arrivals: the next one blocks the decide phase; an
+    # arrival can also bring an already expired deadline
+    gate = gate & ~arr_due(s)
+    if has_deadline:
+        gate = gate & ~_pending_deadline(ctx, plan, wl, s)[0]
+    can_decide = s.ready_cnt > 0
+    ch = None
+    if can_die:
+        # the check and the decide read the same state: one search
+        ch = _choose(ctx, mode, p, wl, s, tree, rate_threshold, alive, False)
+        can_decide = can_decide & _feasible(mode, ch)
+    d = gate & can_decide
+    s = _decide(ctx, mode, p, wl, s, _choose(ctx, mode, p, wl, s, tree,
+                                            rate_threshold, alive, True, ch),
+                d)
 
     # advance when nothing else can fire after this step's phases: a
-    # decide leaves finish > now, but it can lower the next finish. After
-    # the final completion the one-event loop exits without advancing,
-    # hence the n_done guard.
-    next_fin = torch.where(d, _lanes(s.fin_seg, ctx.S).amin(1), next_fin)
-    adv = (run & no_c & no_a & (s.ready_cnt == 0)
-           & (s.n_done < wl.n_tasks))
+    # decide leaves finish > now, but it can lower the next finish (kills
+    # and drops touch fin_seg too). After the final completion the
+    # one-event loop exits without advancing, hence the n_done guard.
+    if can_kill or has_deadline:
+        next_fin = _lanes(s.fin_seg, ctx.S).amin(1)
+    else:
+        next_fin = torch.where(d, _lanes(s.fin_seg, ctx.S).amin(1), next_fin)
+    if can_die:
+        blocked = ~((s.ready_cnt > 0) & _feasible(mode, _choose(
+            ctx, mode, p, wl, s, tree, rate_threshold, alive, False)))
+    else:
+        blocked = s.ready_cnt == 0
+    adv = gate & blocked & (s.n_done < wl.n_tasks)
     next_arr = torch.where(
         s.arr_ptr < wl.n_insts,
         _take(ctx, wl.inst_arrival, s.arr_ptr.clamp_max(I - 1)), _INF)
     nxt = torch.minimum(next_fin, next_arr)
+    if can_die or can_kill or has_deadline:
+        nxt = torch.minimum(nxt, _next_wakeup(ctx, plan, wl, s, fcaps))
     stuck = ~torch.isfinite(nxt)
     nxt = torch.where(stuck, s.now, nxt)
     s = s._replace(now=torch.where(adv, torch.maximum(nxt, s.now), s.now),
                    stalled=s.stalled | (adv & stuck))
-    ev = c.long() + a.long() + d.long() + adv.long()
+    ev = ev + a.long() + d.long() + adv.long()
     return s, ev
 
 
 def _finalize(ctx: _Ctx, wl: FlatWorkload, s: SimState, iters: torch.Tensor,
-              max_iters: int) -> SimResult:
+              max_iters) -> SimResult:
     S, I = ctx.S, ctx.I
     i32 = torch.int32
     dev = ctx.lane.device
@@ -745,12 +1155,30 @@ def _finalize(ctx: _Ctx, wl: FlatWorkload, s: SimState, iters: torch.Tensor,
     # per-instance latency: segment-max of finish over each instance
     inst_fin = torch.full((S, I), _NEG, device=dev).scatter_reduce(
         1, wl.inst_id, valid_fin, "amax")
-    inst_exec = torch.where(wl.inst_valid, inst_fin - wl.inst_arrival,
-                            float("nan"))
+    kept = wl.inst_valid
+    if s.job_dropped is not None:
+        # dropped jobs have no latency: out of the mean
+        kept = kept & ~_lanes(s.job_dropped, S)
+    inst_exec = torch.where(kept, inst_fin - wl.inst_arrival, float("nan"))
     avg_exec = torch.nanmean(inst_exec, 1)
     total_e = s.task_energy + s.sched_energy
-    zero_i = torch.zeros(S, dtype=i32, device=dev)
-    zero_f = torch.zeros(S, dtype=torch.float32, device=dev)
+    if s.job_dropped is None:
+        zero_i = torch.zeros(S, dtype=i32, device=dev)
+        zero_f = torch.zeros(S, dtype=torch.float32, device=dev)
+        faults = dict(
+            n_faults=zero_i, n_retries=zero_i, reexec_us=zero_f,
+            n_dropped_jobs=zero_i, n_dropped_tasks=zero_i,
+            recovery_us=zero_f, n_recovered=zero_i,
+            job_dropped=torch.zeros((S, I), dtype=torch.bool, device=dev))
+    else:
+        dropped = _lanes(s.job_dropped, S)
+        faults = dict(
+            n_faults=s.n_kills.to(i32), n_retries=s.n_retries.to(i32),
+            reexec_us=s.reexec_us, n_dropped_jobs=dropped.sum(1).to(i32),
+            n_dropped_tasks=s.n_dropped_tasks.to(i32),
+            recovery_us=s.recovery_us, n_recovered=s.n_recovered.to(i32),
+            job_dropped=dropped)
+    # `>=`: a super-step retires several events and may pass the cap
     budget = (iters >= max_iters) & (s.n_done < wl.n_tasks)
     return SimResult(
         avg_exec_us=avg_exec,
@@ -774,13 +1202,10 @@ def _finalize(ctx: _Ctx, wl: FlatWorkload, s: SimState, iters: torch.Tensor,
         log_task=_lanes(s.log_task, S).to(i32),
         finish=finish,
         pe_of=_lanes(s.pe_of, S).to(i32),
-        n_faults=zero_i, n_retries=zero_i, reexec_us=zero_f,
-        n_dropped_jobs=zero_i, n_dropped_tasks=zero_i, recovery_us=zero_f,
-        n_recovered=zero_i,
-        job_dropped=torch.zeros((S, I), dtype=torch.bool, device=dev),
         stall_reason=torch.where(
             s.stalled, STALL_DEADLOCK,
             torch.where(budget, STALL_BUDGET, STALL_NONE)).to(i32),
+        **faults,
     )
 
 
@@ -792,19 +1217,21 @@ def _engine_workload(wl: FlatWorkload, device) -> FlatWorkload:
 
 
 def _running(wl: FlatWorkload, s: SimState, it: torch.Tensor,
-             max_iters: int) -> torch.Tensor:
-    """[S] bool: lanes with work left, not stalled and within budget."""
+             max_iters) -> torch.Tensor:
+    """[S] bool: lanes with work left, not stalled and within budget
+    (`max_iters` an int, or [S] under a plan)."""
     return (s.n_done < wl.n_tasks) & ~s.stalled & (it < max_iters)
 
 
 def _block(ctx: _Ctx, mode: int, p: SimParams, s: SimState,
            wl: FlatWorkload, tree: DTree, rate_threshold: torch.Tensor,
-           it: torch.Tensor, max_iters: int):
+           it: torch.Tensor, max_iters, plan: flt.FaultPlan | None = None,
+           fcaps: tuple = flt.NO_CAPS):
     """`POLL_EVERY` super-steps, each gated by `_running`; returns (s, it).
     No host sync: a finished lane is frozen by its gate."""
     for _ in range(POLL_EVERY):
         s, ev = _masked_step(ctx, mode, p, s, wl, tree, rate_threshold,
-                             _running(wl, s, it, max_iters))
+                             _running(wl, s, it, max_iters), plan, fcaps)
         it = it + ev
     return s, it
 
@@ -839,18 +1266,41 @@ def _capture(block, s: SimState, it: torch.Tensor):
     return replay
 
 
+def _fault_iter_bound(base: int, ctx: _Ctx, plan: flt.FaultPlan):
+    """[S] iteration cap with fault headroom: every retry re-runs up to 4
+    events for its task, each PE adds at most its glitches plus its fail
+    and repair stops, and drops and deadlines retire at most one extra
+    event an instance."""
+    return (base + 4 * ctx.T * (plan.max_retries + 2)
+            + ctx.P * (flt.MAX_TRANSIENTS + 2) + 2 * ctx.I + 64)
+
+
 def _simulate(mode: int, params: SimParams, wls: FlatWorkload, tree: DTree,
               rate_threshold: torch.Tensor, telemetry: list | None,
-              graph: bool) -> SimResult:
-    wl = _engine_workload(wls, params.exec_pe.device)
-    ctx = _make_ctx(params, wl)
+              graph: bool, plan: flt.FaultPlan | None = None,
+              step_budget: int | None = None) -> SimResult:
+    dev = params.exec_pe.device
+    wl = _engine_workload(wls, dev)
+    fcaps = flt.NO_CAPS if plan is None else flt.plan_capabilities(plan)
+    ctx = _make_ctx(params, wl, drops=fcaps[1] or fcaps[2])
     max_iters = 3 * ctx.T + ctx.I + 64
-    s = _init_state(ctx, wl)
-    it = torch.zeros(ctx.S, dtype=torch.int64, device=ctx.lane.device)
+    pe_slow = None
+    if plan is not None:
+        # the plan's tensors live on the device before any graph records
+        plan = flt.to_device(plan, dev, ctx.S)
+        max_iters = _fault_iter_bound(max_iters, ctx, plan)
+        pe_slow = flt.pe_slowdown(plan, params.pe_cluster)
+    if step_budget is not None:
+        # a device-side budget: lanes that reach it report STALL_BUDGET
+        max_iters = (torch.clamp_max(max_iters, step_budget)
+                     if torch.is_tensor(max_iters)
+                     else min(max_iters, step_budget))
+    s = _init_state(ctx, wl, pe_slow)
+    it = torch.zeros(ctx.S, dtype=torch.int64, device=dev)
 
     def block(st, i):
         return _block(ctx, mode, params, st, wl, tree, rate_threshold, i,
-                      max_iters)
+                      max_iters, plan, fcaps)
 
     # poll any(running) (a host sync) before every block of POLL_EVERY;
     # with `graph`, the first block runs eagerly (the warm-up that loads
@@ -873,27 +1323,33 @@ def _simulate(mode: int, params: SimParams, wls: FlatWorkload, tree: DTree,
 
 def simulate_batch(mode: int, params: SimParams, wls: FlatWorkload,
                    tree: DTree, rate_threshold: torch.Tensor,
-                   telemetry: list | None = None) -> SimResult:
+                   telemetry: list | None = None,
+                   plan: flt.FaultPlan | None = None,
+                   step_budget: int | None = None) -> SimResult:
     """Run S scenarios to completion in one batch.
 
     `wls` is a stacked host workload (`workloads.stack_workloads`,
     leading `[S]` axis); it is moved to the params' device. `tree` fields
-    are `[3]/[3]/[4]` or `[S, ...]`; `rate_threshold` is `[S]` f32. When
+    are `[3]/[3]/[4]` or `[S, ...]`; `rate_threshold` is `[S]` f32. `plan`
+    is a validated host `faults.FaultPlan`, shared or stacked along `[S]`;
+    `step_budget` caps each lane's events (`STALL_BUDGET`). When
     `telemetry` is a list, a record of this call's lanes, super-steps and
     retired events is appended. On a CUDA device the first block of
     super-steps runs eagerly and the rest replay it from a CUDA graph.
     """
     return _simulate(mode, params, wls, tree, rate_threshold, telemetry,
-                     graph=params.exec_pe.device.type == "cuda")
+                     params.exec_pe.device.type == "cuda", plan, step_budget)
 
 
 def _simulate_eager(mode: int, params: SimParams, wls: FlatWorkload,
                     tree: DTree, rate_threshold: torch.Tensor,
-                    telemetry: list | None = None) -> SimResult:
+                    telemetry: list | None = None,
+                    plan: flt.FaultPlan | None = None,
+                    step_budget: int | None = None) -> SimResult:
     """`simulate_batch` with every block run eagerly, on any device: the
     same kernels in the same order, for holding the captured path to it."""
     return _simulate(mode, params, wls, tree, rate_threshold, telemetry,
-                     graph=False)
+                     False, plan, step_budget)
 
 
 def result_at(res: SimResult, i: int) -> SimResult:
@@ -908,42 +1364,49 @@ def to_numpy(res: SimResult) -> SimResult:
 
 def run(mode: int, wl: FlatWorkload, params: SimParams | None = None,
         tree: DTree | None = None, rate_threshold: float = 1e9, plan=None,
-        device="cuda") -> SimResult:
+        step_budget: int | None = None, device="cuda") -> SimResult:
     """Simulate one scenario (host numpy workload ok): the batched engine
-    with S = 1. Every result field is a scalar or unbatched array."""
+    with S = 1. `plan` is an unbatched `faults.FaultPlan`. Every result
+    field is a scalar or unbatched array."""
+    if plan is not None and flt.is_batched(plan):
+        raise ValueError("run: got a batched FaultPlan (leading scenario "
+                         "axis); use run_batch for plan sweeps")
     res = run_batch(mode, stack_workloads([wl]), params, tree=tree,
-                    rate_threshold=rate_threshold, plan=plan, device=device)
+                    rate_threshold=rate_threshold, plan=plan,
+                    step_budget=step_budget, device=device)
     return result_at(res, 0)
 
 
 def run_batch(mode: int, wls, params: SimParams | None = None,
               tree: DTree | None = None, rate_threshold=1e9,
-              batch_size: int | None = None, plan=None, device="cuda",
+              batch_size: int | None = None, plan=None,
+              step_budget: int | None = None, device="cuda",
               telemetry: list | None = None) -> SimResult:
     """Batched sweep over a scenario axis.
 
     `wls` is a list of same-shape `FlatWorkload`s or an already-stacked
-    one (host numpy, as `workloads` builds them). `tree` (fields with a leading `[S]` axis) and
-    `rate_threshold` (an `[S]` array) may vary per scenario. `batch_size`
-    cuts the axis into fixed-shape chunks; the final chunk is padded by
-    replaying the last scenario and the pad lanes are dropped, so every
-    chunk has the same shape and per-scenario results do not depend on
-    the chunking. Returns a `SimResult` of tensors on `device`.
+    one (host numpy, as `workloads` builds them). `tree` (fields with a
+    leading `[S]` axis), `rate_threshold` (an `[S]` array) and `plan` (a
+    `faults.FaultPlan`, stacked with `faults.stack_plans`) may vary per
+    scenario; a plan without the axis is shared. `step_budget` caps each
+    scenario's events. `batch_size` cuts the axis into fixed-shape chunks;
+    the final chunk is padded by replaying the last scenario and the pad
+    lanes are dropped, so every chunk has the same shape and per-scenario
+    results do not depend on the chunking. Returns a `SimResult` of
+    tensors on `device`.
     """
     return _run_batch(simulate_batch, mode, wls, params, tree,
-                      rate_threshold, batch_size, plan, device, telemetry)
+                      rate_threshold, batch_size, plan, step_budget, device,
+                      telemetry)
 
 
 def _run_batch(simulate, mode: int, wls, params: SimParams | None = None,
                tree: DTree | None = None, rate_threshold=1e9,
-               batch_size: int | None = None, plan=None, device="cuda",
+               batch_size: int | None = None, plan=None,
+               step_budget: int | None = None, device="cuda",
                telemetry: list | None = None) -> SimResult:
     """`run_batch` with each chunk run by `simulate` (`simulate_batch`, or
     `_simulate_eager` to hold the captured path to the eager one)."""
-    if plan is not None:
-        raise NotImplementedError(
-            "fault plans are not ported yet (ROADMAP queue 1: the fault "
-            "half of the simulator and faults.py)")
     if batch_size is not None and batch_size <= 0:
         raise ValueError(f"batch_size must be positive, got {batch_size}")
     dev = resolve(device)
@@ -963,6 +1426,16 @@ def _run_batch(simulate, mode: int, wls, params: SimParams | None = None,
     elif tree.feat.shape[0] != n:
         raise ValueError(f"tree: {tree.feat.shape[0]} trees for {n} "
                          "scenarios")
+    plan_b = False
+    if plan is not None:
+        flt.validate_plan(plan, n_pes=params.pe_cluster.shape[0],
+                          n_clusters=params.cluster_pe_mask.shape[0])
+        plan = flt.FaultPlan(*[np.asarray(x) for x in plan])
+        plan_b = flt.is_batched(plan)
+        if plan_b and plan.pe_fail_at.shape[0] != n:
+            raise ValueError(
+                f"run_batch: batched plan has {plan.pe_fail_at.shape[0]} "
+                f"scenarios but the workload has {n}")
 
     B = n if batch_size is None else min(batch_size, n)
     n_pad = -(-n // B) * B
@@ -973,9 +1446,11 @@ def _run_batch(simulate, mode: int, wls, params: SimParams | None = None,
         ids = pad_idx[lo:lo + B]
         tids = torch.as_tensor(ids, device=dev)
         part = FlatWorkload(*[np.asarray(x)[ids] for x in stacked])
+        part_plan = (flt.FaultPlan(*[x[ids] for x in plan]) if plan_b
+                     else plan)
         chunks.append(simulate(
             mode, params, part, DTree(*[x[tids] for x in tree]), thr[tids],
-            telemetry=telemetry))
+            telemetry=telemetry, plan=part_plan, step_budget=step_budget))
     if len(chunks) == 1:
         return chunks[0]
     return SimResult(*[torch.cat(xs, 0)[:n] for xs in zip(*chunks)])

@@ -162,8 +162,15 @@ def test_per_scenario_thresholds_match_jax():
 
 
 def test_fault_plan_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """`plan=` takes only a well-formed `FaultPlan`: anything else is
+    refused before the engine runs (the fault path itself is held to the
+    reference in `test_torch_faults.py`)."""
+    from repro_torch.core import faults
+    with pytest.raises(TypeError):
         sim.run_batch(sim.MODE_LUT, _stacked(), plan=object(), device="cpu")
+    with pytest.raises(ValueError, match="trailing dim"):
+        sim.run_batch(sim.MODE_LUT, _stacked(),
+                      plan=faults.healthy_plan(n_pes=7), device="cpu")
 
 
 def test_bad_arguments_raise():

@@ -34,7 +34,8 @@ import numpy as np  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro.kernels.etf_ft import kernel as jkernel, ref as jref  # noqa: E402
-from repro_torch.core import convert, soc, simulator as sim, workloads  # noqa: E402
+from repro_torch.core import convert, faults, soc  # noqa: E402
+from repro_torch.core import simulator as sim, workloads  # noqa: E402
 from repro_torch.kernels.etf_ft import kernel, ref  # noqa: E402
 
 SRC = (Path(kernel.__file__).resolve().parent / "csrc"
@@ -114,6 +115,90 @@ def test_a_block_of_super_steps_has_no_host_sync(mode):
         sim._running(wl, s2, it2, max_iters)
     assert bool((it2 > it).any())     # the block retired events
     assert int(s2.d_ptr.sum()) > int(s.d_ptr.sum())
+
+
+@functools.lru_cache(maxsize=None)
+def _fault_case():
+    """Six scenarios at 5 frames, each with a plan of glitches, failures
+    and repairs; half with no retry budget and half with a deadline that
+    fires (`random_plan` alone has none), so kills, retries, drops and
+    deadlines all happen."""
+    cells = [(m, r) for m in (0, 4, 5) for r in (9, 13)]
+    stacked = workloads.default_suite(n_instances=5).build_many(cells)
+    plans = [faults.random_plan(k, n_fail=3, t_horizon_us=6.0)
+             for k in range(len(cells))]
+    plans = [faults.with_retries(p, 0) if k % 2
+             else faults.with_deadline(p, 4.0) for k, p in enumerate(plans)]
+    return stacked, faults.stack_plans(plans)
+
+
+def _fault_engine(mode):
+    stacked, plan = _fault_case()
+    params = sim.make_params(device="cpu")
+    wl = sim._engine_workload(stacked, torch.device("cpu"))
+    fcaps = faults.plan_capabilities(plan)
+    assert fcaps == faults.FULL_CAPS
+    ctx = sim._make_ctx(params, wl, drops=True)
+    tplan = faults.to_device(plan, torch.device("cpu"))
+    max_iters = sim._fault_iter_bound(3 * ctx.T + ctx.I + 64, ctx, tplan)
+    s = sim._init_state(ctx, wl, faults.pe_slowdown(tplan, params.pe_cluster))
+    # a tree that splits on the rate, so DAS takes both schedulers
+    rate_tree = convert.dtree_from_numpy(
+        np.array([sim.FEAT_RATE, 0, 0], np.int32),
+        np.array([400.0, 1e9, -1e9], np.float32),
+        np.array([0, 0, 1, 1], np.int32), device="cpu")
+    tree = sim.DTree(*[x.expand(ctx.S, *x.shape) for x in rate_tree])
+    thr = torch.full((ctx.S,), 900.0)
+
+    def block(st, i):
+        return sim._block(ctx, mode, params, st, wl, tree, thr, i, max_iters,
+                          tplan, fcaps)
+
+    return block, s, torch.zeros(ctx.S, dtype=torch.int64), wl, max_iters, \
+        (params, stacked, tree, thr, plan)
+
+
+@pytest.mark.parametrize("mode", [sim.MODE_LUT, sim.MODE_ETF, sim.MODE_DAS],
+                         ids=lambda m: sim.MODE_NAMES[m])
+def test_a_block_of_fault_super_steps_has_no_host_sync(mode):
+    """The fault phases (the live-PE mask from the plan, the feasibility
+    checks, kills with their re-push, drops with their ordered busy-time
+    rollback and FIFO purge, the wake-up targets) under the sync-detecting
+    mode."""
+    block, s, it, wl, max_iters, _ = _fault_engine(mode)
+    s, it = block(s, it)
+    assert bool(sim._running(wl, s, it, max_iters).any())
+    with _NoHostSync():
+        s2, it2 = block(s, it)
+        sim._running(wl, s2, it2, max_iters)
+    assert bool((it2 > it).any())
+
+
+def test_graph_shaped_fault_blocks_match_plain_eager():
+    """Blocks run as `simulator._capture` replays them (one block function
+    over static buffers, every rebound field copied back into its buffer)
+    end where the plain eager loop ends, bit for bit, with kills, retries
+    and drops on the way."""
+    block, s, it, wl, max_iters, args = _fault_engine(sim.MODE_DAS)
+    s, it = block(s, it)                  # the eager warm-up block
+    while bool(sim._running(wl, s, it, max_iters).any()):
+        out, out_it = block(s, it)
+        for buf, new in zip(s, out):
+            if new is not buf:
+                buf.copy_(new)
+        it.copy_(out_it)
+    assert int(s.n_kills.sum()) > 0 and int(s.n_retries.sum()) > 0
+    assert int(s.job_dropped.sum()) > 0
+    params, stacked, tree, thr, plan = args
+    eager = sim._simulate_eager(sim.MODE_DAS, params, stacked, tree, thr,
+                                plan=plan)
+    S = it.shape[0]
+    assert torch.equal(eager.n_iters, it.int())
+    for f, buf in (("finish", s.finish), ("pe_of", s.pe_of),
+                   ("job_dropped", s.job_dropped)):
+        got = sim._lanes(buf, S)
+        assert got.numpy().tobytes() == getattr(eager, f).to(
+            got.dtype).numpy().tobytes(), f
 
 
 def test_the_dispatch_mode_catches_a_sync():
