@@ -20,7 +20,14 @@ three paths through them:
     super-step asserted; phase 5c runs every DAS section of the
     benchmark (`repro_torch.bench.run`: fig2, fig3, table2, summary40,
     heuristic, overhead, faults) at its full size and holds each to
-    `benchmarks/BENCH_sweep.json`;
+    `benchmarks/BENCH_sweep.json`, checks the record's campaign block
+    and holds `serving_das`, the reference's replica injected, to its
+    record; phase 5d runs the campaign layer on the card (the
+    kill-and-resume smoke test, campaign against `run_batch` bit for
+    bit, packed, resumed and under fault plans, a real CUDA
+    out-of-memory and a watchdog trip inside a graph capture, the
+    scenario split, `bench.run --resume` twice) and reads the idle
+    card's power draw;
   * RecurrentGemma-9B inference at full width and depth (38 layers,
     d_model 4096, vocab 256,000, random weights from a seed): scoring
     4096 tokens, then serving 4 prompts of 4096 tokens with 32 greedy
@@ -1493,30 +1500,379 @@ def _hold(ref, got, path: str, gaps: list, row=None) -> None:
         raise AssertionError(f"{path}: {got!r} != {ref!r}")
 
 
+# the reference's serving replica: TPU v5e constants of
+# `src/repro/launch/mesh.py` and `src/repro/serve/costmodel.py`, injected
+# to hold `serving_das` to its section of `BENCH_sweep.json`
+V5E_REPLICA = dict(name="v5e-8", n_chips=8, peak_flops=197e12,
+                   hbm_bw=819e9, power_w=200.0, idle_w=60.0, efficiency=0.5)
+SERVE_REL = 1e-9        # a serving latency or EDP against the record
+
+
+def _check_campaign(camp: dict, tag: str) -> None:
+    """The run record's `campaign` block of a clean run: every chunk
+    computed (or, resumed, reused), no retry, timeout, out of memory or
+    stall trip, occupancy in (0, 1]."""
+    done = camp["chunks_computed"] + camp["chunks_reused"]
+    bad = {k: camp[k] for k in ("retries", "timeouts", "oom_events",
+                                "shrinks", "stall_trips") if camp[k]}
+    occ = camp["occupancy"]
+    if done != camp["n_chunks"] or bad or (
+            camp["chunks_computed"] and not 0 < occ <= 1):
+        raise AssertionError(f"{tag} campaign block: {done} of "
+                             f"{camp['n_chunks']} chunks, {bad}, "
+                             f"occupancy {occ}")
+
+
 def phase_sections() -> dict:
     import os
-    from repro_torch.bench import run as bench_run
+    from repro_torch.bench import run as bench_run, serving_das
+    from repro_torch.serve import costmodel
     t0 = time.perf_counter()
-    for knob in ("REPRO_BENCH_INSTANCES", "REPRO_BENCH_FULL"):
+    for knob in ("REPRO_BENCH_INSTANCES", "REPRO_BENCH_FULL",
+                 "REPRO_BENCH_BATCH", "REPRO_BENCH_DEVICES",
+                 "REPRO_BENCH_CAMPAIGN_DIR", "REPRO_BENCH_WATCHDOG_S",
+                 "REPRO_BENCH_STEP_BUDGET", "REPRO_BENCH_PACK"):
         os.environ.pop(knob, None)     # the benchmark's own size
     record = bench_run.main(["--device", "cuda", "--json",
                              str(BENCH_RUN_JSON)])
     ref = json.loads((ROOT / "benchmarks" / "BENCH_sweep.json")
                      .read_text())["sections"]
     for name, _, _ in bench_run.SECTIONS:
+        if name == "serving_das":
+            continue        # its H100 rows have no reference; held below
         gaps = []
         _hold(ref[name]["result"], record["sections"][name]["result"],
               name, gaps)
         log(f"[5c sections] {name}: {record['sections'][name]['wall_s']:.1f}s"
             f", {len(gaps)} floats held, largest relative gap "
             f"{max(gaps, default=0.0):.3e}")
+    if set(bench_run.NOT_PORTED) != {"roofline"}:
+        raise AssertionError(f"not ported: {bench_run.NOT_PORTED}")
+    camp = record["campaign"]
+    _check_campaign(camp, "5c")
+    log(f"[5c sections] campaign: {camp['n_sweeps']} sweeps, "
+        f"{camp['n_chunks']} chunks computed, occupancy "
+        f"{camp['occupancy']:.4f} ({camp['active_trips']} of "
+        f"{camp['lane_trips']} lane super-steps), chunk wall max "
+        f"{camp['chunk_wall_s_max']:.3f}s mean "
+        f"{camp['chunk_wall_s_mean']:.3f}s; env {record['env']}")
+    # serving: the H100 run's rows, then the reference's replica injected
+    # and held to the record
+    for row in record["sections"]["serving_das"]["result"]:
+        log(f"[5c serving] h100-8 {row}")
+    rows = serving_das.run(spec=costmodel.ReplicaSpec(**V5E_REPLICA))
+    want = ref["serving_das"]["result"]
+    worst = 0.0
+    if [r["rate"] for r in rows] != [r["rate"] for r in want]:
+        raise AssertionError("serving_das: rates differ")
+    for got, exp in zip(rows, want):
+        for k, v in exp.items():
+            if k == "rate":
+                continue
+            rel = abs(got[k] - v) / abs(v)
+            worst = max(worst, rel)
+            if not rel <= SERVE_REL:
+                raise AssertionError(f"serving_das rate {exp['rate']} {k}:"
+                                     f" {got[k]!r} vs {v!r}")
+    log(f"[5c serving] v5e-8 injected: {len(rows)} rates x 6 latencies and "
+        f"EDPs against BENCH_sweep.json, largest relative gap {worst:.3e}")
     launches = record["kernels"]
     if not (launches["etf_ft_search"] and launches["etf_ft_search_masked"]):
         raise AssertionError(f"sections launched {launches}")
-    log(f"[5c sections] all seven at 60 frames on the 40 x 14 grid in "
+    log(f"[5c sections] all eight at 60 frames on the 40 x 14 grid in "
         f"{record['total_s']:.1f}s, record in {BENCH_RUN_JSON}; launches "
         f"{launches} ({time.perf_counter() - t0:.1f}s)")
     return {"launches": launches, "record": record}
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: the campaign layer on the card
+# ---------------------------------------------------------------------------
+CAMPAIGN_DIR = ROOT / "build" / "repro_torch" / "campaign"
+CAMP_MIXES = range(10)          # 10 mixes x 14 rates at 20 frames
+CAMP_FRAMES = 20
+CAMP_BATCH = 32                 # -> 5 chunks of 32 (the last padded)
+WATCHDOG_S = 3.0                # above a small chunk's time; the hold over
+
+
+def _same(a, b, tag: str) -> None:
+    """Every `SimResult` field equal, dtype and bytes."""
+    from repro_torch.core import simulator as sim
+    for f in sim.SimResult._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or x.shape != y.shape or \
+                x.tobytes() != y.tobytes():
+            raise AssertionError(f"{tag}: field {f} differs")
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _idle_power() -> list:
+    """`power.draw` of the idle card, five reads a second apart after
+    five seconds without work."""
+    import torch
+    torch.cuda.synchronize()
+    time.sleep(5.0)
+    reads = []
+    for _ in range(5):
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.draw",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True).stdout.split()
+        reads.append(float(out[0]))
+        time.sleep(1.0)
+    return reads
+
+
+def _kill_resume() -> dict:
+    """`bench/kill_resume_smoke.py` on the card, in a process of its own
+    (its child is SIGKILLed mid-campaign); returns its resume's stats."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.bench.kill_resume_smoke",
+         "--device", "cuda"], capture_output=True, text=True, env=env,
+        cwd=ROOT, timeout=600)
+    print(out.stdout, end="", flush=True)
+    if out.returncode != 0:
+        print(out.stderr, file=sys.stderr, flush=True)
+        raise AssertionError(f"kill_resume_smoke exited {out.returncode}")
+    launches = json.loads(out.stdout.split("# launches ", 1)[1]
+                          .splitlines()[0])
+    if not launches["avail_rows"]:
+        raise AssertionError(f"kill_resume_smoke launched {launches}")
+    return launches
+
+
+def phase_campaign(trees: dict, sections: dict) -> dict:
+    import shutil
+    import torch
+    from repro_torch.bench import faults as fault_bench
+    from repro_torch.bench import run as bench_run
+    from repro_torch.core import campaign as camp, convert
+    from repro_torch.core import simulator as sim, workloads
+    from repro_torch.kernels.etf_ft import ops
+    t00 = time.perf_counter()
+    shutil.rmtree(CAMPAIGN_DIR, ignore_errors=True)
+    kr = _kill_resume()
+    log(f"[5d campaign] kill_resume_smoke on the card: PASS, its launches "
+        f"{kr} ({time.perf_counter() - t00:.1f}s)")
+
+    ops.reset_launches()
+    cells = [(m, r) for m in CAMP_MIXES for r in range(14)]
+    stacked = workloads.default_suite(n_instances=CAMP_FRAMES).build_many(
+        cells)
+    das_tree = convert.dtree_from_numpy(**trees["DAS"], device="cuda")
+    unsplit = {}
+    for mode in (sim.MODE_LUT, sim.MODE_ETF, sim.MODE_DAS):
+        name = sim.MODE_NAMES[mode]
+        kw = {"tree": das_tree} if mode == sim.MODE_DAS else {}
+        t0 = time.perf_counter()
+        ref = sim.to_numpy(sim.run_batch(mode, stacked, device="cuda", **kw))
+        t1 = time.perf_counter()
+        root = str(CAMPAIGN_DIR / "grid")
+        first = camp.run_campaign(mode, stacked, batch_size=CAMP_BATCH,
+                                  checkpoint_dir=root, device="cuda", **kw)
+        t2 = time.perf_counter()
+        again = camp.run_campaign(mode, stacked, batch_size=CAMP_BATCH,
+                                  checkpoint_dir=root, device="cuda", **kw)
+        t3 = time.perf_counter()
+        st, st2 = first.stats, again.stats
+        if not (st["n_chunks"] >= 4 and st["packed"]
+                and st["chunks_computed"] == st["n_chunks"]
+                and st2["chunks_reused"] == st["n_chunks"]
+                and st2["chunks_computed"] == 0):
+            raise AssertionError(f"5d {name}: stats {st} / resumed {st2}")
+        _check_campaign(st, f"5d {name}")
+        _same(ref, first.result, f"5d {name} campaign vs run_batch")
+        _same(ref, again.result, f"5d {name} resumed vs run_batch")
+        unsplit[mode] = ref
+        log(f"[5d campaign] {name}: {len(cells)} scenarios at "
+            f"{CAMP_FRAMES} frames, run_batch one "
+            f"chunk {t1 - t0:.2f}s; campaign {st['n_chunks']} packed chunks "
+            f"of {CAMP_BATCH} {t2 - t1:.2f}s (occupancy "
+            f"{st['occupancy']:.4f}, {st['checkpoint_bytes']} bytes written "
+            f"in {st['checkpoint_write_s']:.3f}s); resumed, every chunk "
+            f"reused, {t3 - t2:.2f}s ({st2['checkpoint_read_s']:.3f}s "
+            "reading); all three bit-equal")
+
+    # stacked fault plans: the fault path through the campaign
+    plan = fault_bench.stress_plans()
+    n = plan.pe_fail_at.shape[0]
+    fstack = workloads.stack_workloads(
+        [workloads.default_suite(n_instances=60).build(
+            fault_bench.MIX_IDX, fault_bench.RATE_IDX)] * n)
+    t0 = time.perf_counter()
+    ref = sim.to_numpy(sim.run_batch(sim.MODE_DAS, fstack, tree=das_tree,
+                                     plan=plan, device="cuda"))
+    out = camp.run_campaign(sim.MODE_DAS, fstack, tree=das_tree, plan=plan,
+                            batch_size=8, device="cuda")
+    _check_campaign(out.stats, "5d fault plans")
+    _same(ref, out.result, "5d stress_plans campaign vs run_batch")
+    if not out.result.n_dropped_jobs.sum():
+        raise AssertionError("5d stress_plans: no job dropped")
+    log(f"[5d campaign] DAS under stress_plans(): {n} plans, "
+        f"{out.stats['n_chunks']} chunks, bit-equal to run_batch "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+    small = workloads.default_suite(n_instances=10).build_many(
+        [(m, r) for m in range(4) for r in (0, 13)])
+    small_ref = sim.to_numpy(sim.run_batch(sim.MODE_ETF, small,
+                                           device="cuda"))
+    # a real out-of-memory on the card: the first attempt allocates more
+    # than the card holds while its graph is being captured, after the
+    # block has recorded its kernels; classified, the half-recorded graph
+    # dropped with its attempt and its recorded launches taken back out
+    # of LAUNCHES, shrunk, finished
+    total = torch.cuda.get_device_properties(0).total_memory
+    real_block, real_capture = sim._block, sim._capture
+    hit = {"oom": 0, "held": 0, "recorded": 0, "left": None}
+
+    def oom_block(*a, **kw):
+        out = real_block(*a, **kw)
+        if torch.cuda.is_current_stream_capturing() and not hit["oom"]:
+            hit["oom"] += 1
+            hit["recorded"] = ops.LAUNCHES["avail_rows"] - hit["at"]
+            torch.empty(total + (1 << 30), dtype=torch.uint8,
+                        device="cuda")
+        return out
+
+    def oom_capture(*a, **kw):
+        hit["at"] = ops.LAUNCHES["avail_rows"]
+        try:
+            return real_capture(*a, **kw)
+        except torch.OutOfMemoryError:
+            hit["left"] = ops.LAUNCHES["avail_rows"] - hit["at"]
+            raise
+
+    sim._block, sim._capture = oom_block, oom_capture
+    try:
+        out = camp.run_campaign(sim.MODE_ETF, small, batch_size=8,
+                                device="cuda")
+    finally:
+        sim._block, sim._capture = real_block, real_capture
+    st = out.stats
+    if not (hit["oom"] == 1 and st["oom_events"] == 1 and st["shrinks"] == 1
+            and st["retries"] == 1):
+        raise AssertionError(f"5d OOM: {hit} {st}")
+    if not (hit["recorded"] > 0 and hit["left"] == 0):
+        raise AssertionError(
+            f"5d OOM: the failed capture recorded {hit['recorded']} "
+            f"avail_rows launches and left {hit['left']} in LAUNCHES "
+            "(must be > 0 and 0)")
+    _same(small_ref, out.result, "5d after a CUDA OOM")
+    log(f"[5d campaign] a real CUDA out-of-memory ({total + (1 << 30)} "
+        f"bytes asked of {total}) in the first attempt's graph capture, "
+        f"after {hit['recorded']} avail_rows launches were recorded: "
+        f"classified, LAUNCHES restored, batch 8 -> 4, retried; results "
+        f"bit-equal")
+
+    # the watchdog on the card: the first attempt is held in its graph
+    # capture past the limit; the stop flag ends it at its next poll, the
+    # worker is joined, the retry captures anew
+    stopped = {"n": 0}
+    real_on = sim._simulate_on
+
+    def held_block(*a, **kw):
+        if torch.cuda.is_current_stream_capturing() and not hit["held"]:
+            hit["held"] += 1
+            time.sleep(WATCHDOG_S + 1.0)
+        return real_block(*a, **kw)
+
+    def counting(*a, **kw):
+        try:
+            return real_on(*a, **kw)
+        except sim.Stopped:
+            stopped["n"] += 1
+            raise
+
+    sim._block, sim._simulate_on = held_block, counting
+    try:
+        t0 = time.perf_counter()
+        out = camp.run_campaign(sim.MODE_ETF, small, batch_size=8,
+                                watchdog_s=WATCHDOG_S, device="cuda")
+    finally:
+        sim._block, sim._simulate_on = real_block, real_on
+    st = out.stats
+    if not (hit["held"] == 1 and st["timeouts"] == 1 and st["retries"] == 1
+            and stopped["n"] == 1):
+        raise AssertionError(f"5d watchdog: {hit} {stopped} {st}")
+    _same(small_ref, out.result, "5d after a watchdog trip")
+    log(f"[5d campaign] watchdog {WATCHDOG_S}s tripped during a graph "
+        f"capture: stopped at the next poll, joined, retried without a "
+        f"capture error; results bit-equal "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+    # the split: one card named twice, and two cards when there are two
+    n_cards = torch.cuda.device_count()
+    tel = []
+    two = sim.to_numpy(sim.run_batch(sim.MODE_ETF, stacked,
+                                     devices=["cuda:0", "cuda:0"],
+                                     device="cuda", telemetry=tel))
+    _same(unsplit[sim.MODE_ETF], two, "5d devices=[cuda:0, cuda:0]")
+    if [t["lanes"] for t in tel] != [len(cells) // 2] * 2:
+        raise AssertionError(f"5d split: parts {tel}")
+    if n_cards >= 2:
+        _same(unsplit[sim.MODE_ETF], sim.to_numpy(sim.run_batch(
+            sim.MODE_ETF, stacked, devices=2, device="cuda")),
+            "5d devices=2")
+    log(f"[5d campaign] {n_cards} card(s); ETF split over [cuda:0, cuda:0]"
+        + (" and over 2 cards" if n_cards >= 2 else "")
+        + " equals devices=1 bit for bit")
+    launches = dict(ops.LAUNCHES)
+    if not (launches["avail_rows"] and launches["etf_ft_search_masked"]):
+        raise AssertionError(f"5d launched {launches}")
+
+    # bench.run --resume, twice: every chunk reused, identical sections
+    rdir = CAMPAIGN_DIR / "resume"
+    runs = []
+    for k in (1, 2):
+        t0 = time.perf_counter()
+        rec = bench_run.main(["--device", "cuda", "--only", "fig3,faults",
+                              "--resume", str(rdir), "--json",
+                              str(CAMPAIGN_DIR / f"resume_{k}.json")])
+        runs.append((rec, time.perf_counter() - t0))
+    (r1, w1), (r2, w2) = runs
+    c1, c2 = r1["campaign"], r2["campaign"]
+    if not (c1["chunks_computed"] == c1["n_chunks"] == c2["chunks_reused"]
+            and c2["chunks_computed"] == 0):
+        raise AssertionError(f"5d --resume: {c1} / {c2}")
+    def untimed(x):
+        if isinstance(x, dict):
+            return {k: untimed(v) for k, v in x.items()
+                    if not _timing_key(k)}
+        if isinstance(x, list):
+            return [untimed(v) for v in x]
+        return x
+
+    def canon(x) -> str:
+        """A section's result as JSON, its timing keys left out."""
+        return json.dumps(untimed(json.loads(json.dumps(
+            x, default=bench_run._jsonable))), sort_keys=True)
+
+    base = sections["record"]["sections"]
+    for name in ("fig3", "faults"):
+        if not (canon(r1["sections"][name]["result"])
+                == canon(r2["sections"][name]["result"])
+                == canon(base[name]["result"])):
+            raise AssertionError(f"5d --resume {name}: results differ")
+    size = _dir_bytes(rdir)
+    log(f"[5d campaign] bench.run --only fig3,faults --resume: run 1 "
+        f"{w1:.1f}s ({c1['n_sweeps']} sweeps, {c1['n_chunks']} chunks, "
+        f"{c1['checkpoint_bytes']} bytes written in "
+        f"{c1['checkpoint_write_s']:.2f}s), run 2 {w2:.1f}s (every chunk "
+        f"reused, {c2['checkpoint_read_s']:.2f}s reading); checkpoint "
+        f"directory {size} bytes; fig3 and faults identical in both and to "
+        f"phase 5c's")
+    shutil.rmtree(CAMPAIGN_DIR, ignore_errors=True)
+    for k, v in r1["kernels"].items():
+        launches[k] += v
+    idle = _idle_power()
+    log(f"[5d campaign] idle card power.draw {idle} W; launches {launches}"
+        f" ({time.perf_counter() - t00:.1f}s)")
+    return {"launches": launches, "idle_w": idle}
 
 
 # ---------------------------------------------------------------------------
@@ -1817,15 +2173,18 @@ def main() -> int:
     phase_cross(das_path["out"]["trees"])
     fault_path = phase_faults(das_path["out"]["trees"])
     sections = phase_sections()
+    campaign_path = phase_campaign(das_path["out"]["trees"], sections)
     lm_path = phase_lm()
     phase_lm_cross()
     mamba_path = phase_mamba()
     phase_mamba_cross()
     checked = {"das": kern, "lm": lm_kern, "mamba": ssd_kern}
-    # the DAS kernels' launches over its three paths: summary40 (phase
-    # 4), the fault path (5b) and the benchmark's sections (5c)
+    # the DAS kernels' launches over its four paths: summary40 (phase
+    # 4), the fault path (5b), the benchmark's sections (5c) and the
+    # campaign on the card (5d)
     das_launches = {k: das_path["launches"][k] + fault_path["launches"][k]
-                    + sections["launches"][k] for k in das_path["launches"]}
+                    + sections["launches"][k] + campaign_path["launches"][k]
+                    for k in das_path["launches"]}
     launched = {"das": das_launches, "lm": lm_path["launches"],
                 "mamba": mamba_path["launches"]}
     rows = []

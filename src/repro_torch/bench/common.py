@@ -1,18 +1,36 @@
 """Shared benchmark pipeline: the workload suite, the oracle datasets, the
 trained DAS policies and the per-mode evaluation grids, on one device.
 
-The port of `benchmarks/common.py` without its campaign layer (chunk
-checkpoints, watchdog, retry; ROADMAP queue 1 item 4). The two oracle
-sweeps (`MODE_ORACLE` and `MODE_ETF` over the training grid) are
-metric-independent, since only the labelling of pending samples reads
-the metric, so they run once and serve the datasets of both metrics.
-Every sweep is one `sim.run_batch` call; its wall time, super-steps,
-retired events and health counters are kept in `Bench.sweeps`.
+The port of `benchmarks/common.py`. Every sweep — the two oracle sweeps
+and every evaluation grid — goes through the crash-safe campaign runner
+(`core.campaign.run_campaign` over `sim.run_batch`: fixed-shape chunks
+split over the devices, per-chunk retry and backoff, a watchdog, and,
+when a campaign directory is set, atomic chunk checkpoints that a killed
+run resumes bit for bit). The two oracle sweeps (`MODE_ORACLE` and
+`MODE_ETF` over the training grid) are metric-independent, since only
+the labelling of pending samples reads the metric, so they run once and
+serve the datasets of both metrics. Each sweep's wall time, super-steps,
+retired events and health counters are kept in `Bench.sweeps`, its
+campaign counters in `Bench.campaigns` (`Bench.campaign_stats()`).
 
 A `Bench` holds its caches itself, so two pipelines in one process (the
 GPU run and a CPU cross-check, say) never share results. The sections
 (`fig2`, `fig3`, `table2`, `summary40`, `heuristic`, `overhead`,
 `faults`) each take one, so `bench.run` trains DAS once for all.
+
+Environment knobs, read at call time as the reference reads them:
+  REPRO_BENCH_INSTANCES     frames per workload (default 60)
+  REPRO_BENCH_FULL=0        train on the 10 x 8 subset, not 40 x 14
+  REPRO_BENCH_BATCH         scenarios a chunk (unset: one chunk a sweep;
+                            the reference autotunes it, the port does not)
+  REPRO_BENCH_DEVICES       devices a chunk is split over (default: every
+                            visible card; `simulator._resolve_devices`)
+  REPRO_BENCH_CAMPAIGN_DIR  checkpoint the sweeps' chunks into this
+                            directory (`bench.run --resume DIR`)
+  REPRO_BENCH_WATCHDOG_S    per-chunk wall-clock watchdog (default off)
+  REPRO_BENCH_STEP_BUDGET   per-chunk step budget (default off; a trip
+                            retries with an escalated budget)
+  REPRO_BENCH_PACK=0        no length-aware chunk packing
 """
 from __future__ import annotations
 
@@ -24,7 +42,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core import classifier as clf
-from repro_torch.core import das, oracle, simulator as sim, workloads
+from repro_torch.core import campaign, das, oracle, simulator as sim
+from repro_torch.core import workloads
 from repro_torch.core.device import resolve
 
 N_INSTANCES = 60          # frames per workload, as the reference's default
@@ -37,15 +56,20 @@ class Bench:
     """One benchmark pipeline on one device.
 
     `train_mixes` / `train_rates` pick the oracle grid (default: the
-    paper's full 40 mixes x 14 rates). Every sweep is one chunk: the
-    whole grid fits on the card, and a chunk's super-step count is set
-    by its slowest lane, so fewer chunks means fewer super-steps.
+    paper's full 40 mixes x 14 rates). Unless `REPRO_BENCH_BATCH` is
+    set, every sweep is one chunk: the whole grid fits on the card, and
+    a chunk's super-step count is set by its slowest lane, so fewer
+    chunks means fewer super-steps. `campaign_dir` roots the sweeps'
+    chunk checkpoints (None: none are written).
     """
 
     def __init__(self, device="cuda", n_instances: int = N_INSTANCES,
                  train_mixes: Sequence[int] | None = None,
-                 train_rates: Sequence[int] | None = None):
+                 train_rates: Sequence[int] | None = None,
+                 campaign_dir: str | None = None):
         self.device = resolve(device)
+        self.campaign_dir = campaign_dir
+        self.campaigns: List[Dict] = []
         self.suite = workloads.default_suite(n_instances=n_instances)
         self.params = sim.make_params(device=self.device)
         self.train_mixes = list(range(self.suite.mixes.shape[0])
@@ -63,29 +87,60 @@ class Bench:
               rate_threshold=1e9, plan=None, label: str = "",
               cells: Sequence[Tuple[int, int]] | None = None
               ) -> sim.SimResult:
-        """One batched sweep (`plan`: a `faults.FaultPlan`, shared or
-        stacked); returns the result as numpy arrays. Stalled cells and
-        dropped jobs are reported by name (`report_health`)."""
-        tel: List[Dict] = []
+        """One crash-safe batched sweep (`plan`: a `faults.FaultPlan`,
+        shared or stacked) through `campaign.run_campaign`; returns the
+        result as numpy arrays. Chunks are checkpointed under
+        `campaign_dir` when set; the campaign's counters go to
+        `campaigns`. Stalled cells and dropped jobs are reported by name
+        (`report_health`)."""
         t0 = time.perf_counter()
-        res = sim.run_batch(mode, stacked, self.params, tree=tree,
-                            rate_threshold=rate_threshold, plan=plan,
-                            device=self.device, telemetry=tel)
-        res = sim.to_numpy(res)    # waits for the device
+        out = campaign.run_campaign(
+            mode, stacked, self.params, tree=tree,
+            rate_threshold=rate_threshold, plan=plan,
+            batch_size=_env_opt_int("REPRO_BENCH_BATCH"),
+            device=self.device, checkpoint_dir=self.campaign_dir,
+            watchdog_s=_env_opt_float("REPRO_BENCH_WATCHDOG_S"),
+            step_budget=_env_opt_int("REPRO_BENCH_STEP_BUDGET"))
+        res = out.result           # host numpy: waited for the device
         wall = time.perf_counter() - t0
         label = label or sim.MODE_NAMES[mode]
+        self.campaigns.append({"label": label, **out.stats})
         rep = report_health(res, label=label, cells=cells)
         self.sweeps.append({
             "label": label,
             "mode": sim.MODE_NAMES[mode],
             "scenarios": int(res.n_done.shape[0]),
             "wall_s": wall,
-            "steps": sum(t["steps"] for t in tel),
-            "events": sum(t["events"] for t in tel),
+            "steps": out.stats["steps"],
+            "events": out.stats["retired_events"],
             **{k: rep[k] for k in ("stalled", "unfinished", "ready_drop",
                                    "dropped_jobs", "dropped_tasks")},
         })
         return res
+
+    def campaign_stats(self) -> Dict:
+        """The campaign counters summed over this pipeline's sweeps, with
+        the reference's keys (`benchmarks.common.campaign_stats`): chunk
+        reuse, retries, timeouts, out-of-memory shrinks, stall trips,
+        chunk wall times and occupancy (lane super-steps on which the
+        lane was running, over those run); and the port's super-steps
+        and checkpoint bytes and seconds."""
+        keys = ("n_scenarios", "n_chunks", "chunks_reused",
+                "chunks_computed", "retries", "timeouts", "oom_events",
+                "shrinks", "stall_trips", "lane_trips", "active_trips",
+                "retired_events", "steps", "checkpoint_bytes",
+                "checkpoint_write_s", "checkpoint_read_s")
+        totals = {k: sum(c[k] for c in self.campaigns) for k in keys}
+        walls = [w for c in self.campaigns for w in c["chunk_wall_s"]]
+        return {
+            "n_sweeps": len(self.campaigns),
+            **totals,
+            "occupancy": (totals["active_trips"] / totals["lane_trips"]
+                          if totals["lane_trips"] else None),
+            "chunk_wall_s_max": max(walls) if walls else 0.0,
+            "chunk_wall_s_mean": sum(walls) / len(walls) if walls else 0.0,
+            "sweeps": self.campaigns,
+        }
 
     def dataset(self, metric: str = "avg_exec_us") -> oracle.OracleDataset:
         if metric not in self._datasets:
@@ -183,6 +238,26 @@ def _env_int(name: str, default: int) -> int:
     return val
 
 
+def _env_opt_int(name: str) -> int | None:
+    """Like `_env_int` but unset/blank means None (knob off)."""
+    raw = os.environ.get(name, "").strip()
+    return _env_int(name, 0) if raw else None
+
+
+def _env_opt_float(name: str) -> float | None:
+    """A positive float knob; unset/blank means None (knob off)."""
+    raw = os.environ.get(name, "").strip()
+    if not raw:
+        return None
+    try:
+        val = float(raw)
+    except ValueError:
+        raise ValueError(f"{name}={raw!r} is not a number") from None
+    if val <= 0:
+        raise ValueError(f"{name}={val} must be positive")
+    return val
+
+
 def env_config() -> Dict:
     """The reference's two size knobs, read at call time:
     `REPRO_BENCH_INSTANCES` (frames per workload, default 60) and
@@ -195,12 +270,15 @@ def env_config() -> Dict:
             "train_rates": None if full else SUBSET_RATES}
 
 
-def bench_from_env(device="cuda") -> Bench:
-    """A `Bench` sized by `env_config()`."""
+def bench_from_env(device="cuda", campaign_dir: str | None = None) -> Bench:
+    """A `Bench` sized by `env_config()`, checkpointing into
+    `campaign_dir`, else `REPRO_BENCH_CAMPAIGN_DIR` when set."""
     cfg = env_config()
+    cdir = (campaign_dir
+            or os.environ.get("REPRO_BENCH_CAMPAIGN_DIR", "").strip() or None)
     return Bench(device, n_instances=cfg["n_instances"],
                  train_mixes=cfg["train_mixes"],
-                 train_rates=cfg["train_rates"])
+                 train_rates=cfg["train_rates"], campaign_dir=cdir)
 
 
 def cli(description: str, argv=None, extra=()):

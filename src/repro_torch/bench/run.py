@@ -1,24 +1,31 @@
 """The port's benchmark harness: every DAS section of the paper's
-benchmark on one shared pipeline, with a run record of its own.
+benchmark and the serving section on one shared pipeline, with a run
+record of its own.
 
     python -m repro_torch.bench.run [--device cuda] [--only fig2,fig3,...]
-                                    [--csv] [--json PATH]
+                                    [--csv] [--json PATH] [--resume DIR]
 
-The port of `benchmarks/run.py`'s DAS sections. They run in the
-reference's order on one `Bench`, so the two oracle sweeps and the DAS
-training happen once. `--json PATH` writes the record: `total_s`, `env`
-(device name, the `nvidia-smi` power limit, torch version, frames per
-workload and the training grid), `derived` (summary40's five numbers),
+The port of `benchmarks/run.py`. The sections run in the reference's
+order on one `Bench`, so the two oracle sweeps and the DAS training
+happen once; every sweep goes through the crash-safe campaign runner.
+`--resume DIR` checkpoints every sweep's chunks into DIR (atomic
+write-temp + rename); the same command run again after a crash or a
+SIGKILL resumes from the completed chunks and gives byte-identical
+results. `--json PATH` writes the record atomically: `total_s`, `env`
+(device name, the `nvidia-smi` power limit, torch version, devices
+and chunk size, frames per workload and the training grid), `derived`
+(summary40's five numbers), `campaign` (the campaign counters:
+chunks computed and reused, retries, timeouts, out-of-memory shrinks,
+stall trips, chunk wall times, occupancy; `common.Bench.campaign_stats`),
 `kernels` (the decision kernels' launches over the run, by
 `LAUNCHES`) and `sections` (each section's `wall_s` and result, or its
 error). The reference's record, `benchmarks/BENCH_sweep.json`, is never
-overwritten. Sizes follow the reference's `REPRO_BENCH_INSTANCES` and
-`REPRO_BENCH_FULL` (see `common.env_config`).
+overwritten. Sizes and the campaign follow the reference's environment
+knobs (see `common`).
 """
 from __future__ import annotations
 
 import argparse
-import json
 import os
 import subprocess
 import time
@@ -29,7 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch.bench import (common, faults, fig2, fig3, heuristic,
-                               overhead, summary40, table2)
+                               overhead, serving_das, summary40, table2)
+from repro_torch.core import campaign, simulator as sim
 from repro_torch.kernels.etf_ft import ops
 
 SECTIONS = [
@@ -40,10 +48,10 @@ SECTIONS = [
     ("heuristic", "static-threshold heuristic comparison", heuristic.run),
     ("overhead", "scheduling overhead anchors", overhead.run),
     ("faults", "fault-injection degradation curves", faults.run),
+    ("serving_das", "beyond-paper: DAS serving dispatch", serving_das.run),
 ]
-# the reference's other two sections, and where the port stands on them
+# the reference's other section, and where the port stands on it
 NOT_PORTED = {
-    "serving_das": "not ported: ROADMAP queue 1 item 6 (serving)",
     "roofline": "not ported: ROADMAP queue 1 item 9 (launch and analysis)",
 }
 REFERENCE_RECORD = (Path(__file__).resolve().parents[3] / "benchmarks"
@@ -84,6 +92,10 @@ def env_record(bench: common.Bench, full_grid: bool) -> dict:
         "nvidia_smi_name_power_limit": _power_limit(dev),
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
+        "n_devices": len(sim._resolve_devices(None, dev)),
+        "bench_devices": os.environ.get("REPRO_BENCH_DEVICES"),
+        "batch_size": common._env_opt_int("REPRO_BENCH_BATCH"),
+        "campaign_dir": bench.campaign_dir,
         "full_grid": full_grid,
         "n_instances": int(bench.suite.n_instances),
         "train_grid": [len(bench.train_mixes), len(bench.train_rates)],
@@ -135,6 +147,9 @@ def main(argv=None) -> dict:
                     help="write the run record to PATH")
     ap.add_argument("--only", default=None,
                     help="comma-separated section names")
+    ap.add_argument("--resume", default=None, metavar="DIR",
+                    help="checkpoint sweep chunks into DIR and resume any "
+                         "completed chunks from a previous (killed) run")
     args = ap.parse_args(argv)
     only = set(args.only.split(",")) if args.only else None
     known = {n for n, _, _ in SECTIONS} | set(NOT_PORTED)
@@ -148,7 +163,7 @@ def main(argv=None) -> dict:
             print(f"== {name}: {why}")
 
     cfg = common.env_config()
-    bench = common.bench_from_env(args.device)
+    bench = common.bench_from_env(args.device, campaign_dir=args.resume)
     ops.reset_launches()
     t00 = time.perf_counter()
     results, failures = run_sections(bench, only, args.csv,
@@ -161,6 +176,7 @@ def main(argv=None) -> dict:
         "total_s": total,
         "env": env_record(bench, cfg["full_grid"]),
         "derived": derived(results),
+        "campaign": bench.campaign_stats(),
         "kernels": dict(ops.LAUNCHES),
         "sweeps": bench.sweeps,
         "not_ported": NOT_PORTED,
@@ -169,9 +185,8 @@ def main(argv=None) -> dict:
     if args.json:
         path = Path(args.json)
         path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(path.name + ".tmp")
-        tmp.write_text(json.dumps(record, indent=1, default=_jsonable))
-        os.replace(tmp, path)     # a crash mid-write leaves no torn file
+        # a crash mid-write leaves no torn file
+        campaign.atomic_write_json(str(path), record, default=_jsonable)
         print(f"wrote {path}")
     if failures:
         raise SystemExit(1)

@@ -31,14 +31,19 @@ super-step runs the phases with gates re-derived after each phase,
 so it retires the same event sequence as the reference's
 one-event-per-iteration loop, and `n_iters` still counts events. `run`
 is the engine with S = 1; `run_batch` cuts a sweep into fixed-shape
-chunks. The step has no host sync: finished lanes are frozen by the
-`run` gate, and the loop polls `any(running)` only before each block of
-`POLL_EVERY` super-steps. On the CPU every block runs eagerly. On a CUDA
-device the first block runs eagerly (the warm-up); from the second on,
-each block replays one CUDA graph recorded over the state's buffers, so
-a block costs one graph launch of host time. The results are bit-equal
-to the eager loop's (`_simulate_eager`), and the decision kernels'
-`LAUNCHES` count each replay.
+chunks and splits each over its devices (the reference's `shard_map`:
+no collective, so per-scenario results do not depend on the split).
+The step has no host sync: finished lanes are frozen by the `run` gate,
+and the loop polls `any(running)` only before each block of
+`POLL_EVERY` super-steps (and there ends early when its caller sets
+`stop`). On the CPU every block runs eagerly. On a CUDA device each
+call runs on a stream of its own; the first block runs eagerly (the
+warm-up), and from the second on each block replays one CUDA graph
+recorded over the state's buffers, so a block costs one graph launch
+of host time. The results are bit-equal to the eager loop's
+(`_simulate_eager`), and the decision kernels' `LAUNCHES` count each
+replay. Each call's telemetry counts, on the device, the super-steps
+each lane was running (occupancy).
 
 Every per-lane buffer that takes gated row writes is stored flat, as
 `[S * N + 1, ...]`: lane s owns rows `s*N .. s*N + N - 1`, and the last
@@ -77,6 +82,9 @@ without any fault state; `faults.healthy_plan()` gives the same results.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -1226,12 +1234,16 @@ def _running(wl: FlatWorkload, s: SimState, it: torch.Tensor,
 def _block(ctx: _Ctx, mode: int, p: SimParams, s: SimState,
            wl: FlatWorkload, tree: DTree, rate_threshold: torch.Tensor,
            it: torch.Tensor, max_iters, plan: flt.FaultPlan | None = None,
-           fcaps: tuple = flt.NO_CAPS):
+           fcaps: tuple = flt.NO_CAPS, active: torch.Tensor | None = None):
     """`POLL_EVERY` super-steps, each gated by `_running`; returns (s, it).
-    No host sync: a finished lane is frozen by its gate."""
+    No host sync: a finished lane is frozen by its gate. `active` ([S]
+    i64), when given, counts in place the super-steps each lane ran."""
     for _ in range(POLL_EVERY):
+        run = _running(wl, s, it, max_iters)
+        if active is not None:
+            active.add_(run)
         s, ev = _masked_step(ctx, mode, p, s, wl, tree, rate_threshold,
-                             _running(wl, s, it, max_iters), plan, fcaps)
+                             run, plan, fcaps)
         it = it + ev
     return s, it
 
@@ -1245,18 +1257,25 @@ def _capture(block, s: SimState, it: torch.Tensor):
 
     Capture launches nothing, so the decision kernels' launches recorded
     during capture are taken out of `LAUNCHES` and added back once per
-    replay. A capture that fails raises; nothing falls back to eager."""
+    replay. The graph records on the current stream and checks only this
+    thread's calls (`thread_local`), so a capture on another card, in
+    another thread, does not break it. A capture that fails raises, its
+    graph is dropped and `LAUNCHES` is left as it was found; nothing falls
+    back to eager."""
     counts = _kops.LAUNCHES
     before = dict(counts)
     g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        out, out_it = block(s, it)
-        for buf, new in zip(s, out):
-            if new is not buf:
-                buf.copy_(new)
-        it.copy_(out_it)
-    per_replay = {k: counts[k] - n for k, n in before.items()}
-    counts.update(before)
+    try:
+        with torch.cuda.graph(g, stream=torch.cuda.current_stream(),
+                              capture_error_mode="thread_local"):
+            out, out_it = block(s, it)
+            for buf, new in zip(s, out):
+                if new is not buf:
+                    buf.copy_(new)
+            it.copy_(out_it)
+        per_replay = {k: counts[k] - n for k, n in before.items()}
+    finally:
+        counts.update(before)
 
     def replay() -> None:
         g.replay()
@@ -1275,10 +1294,41 @@ def _fault_iter_bound(base: int, ctx: _Ctx, plan: flt.FaultPlan):
             + ctx.P * (flt.MAX_TRANSIENTS + 2) + 2 * ctx.I + 64)
 
 
+class Stopped(RuntimeError):
+    """The caller's `stop` flag was set; the sweep ended at a poll."""
+
+
 def _simulate(mode: int, params: SimParams, wls: FlatWorkload, tree: DTree,
               rate_threshold: torch.Tensor, telemetry: list | None,
               graph: bool, plan: flt.FaultPlan | None = None,
-              step_budget: int | None = None) -> SimResult:
+              step_budget: int | None = None, stop=None) -> SimResult:
+    dev = params.exec_pe.device
+    if dev.type != "cuda":
+        return _simulate_on(mode, params, wls, tree, rate_threshold,
+                            telemetry, graph, plan, step_budget, stop)
+    # a stream of its own, which the graph records on: the caller's work
+    # is waited for first, and the stream is drained before return
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    try:
+        with torch.cuda.stream(stream):
+            res = _simulate_on(mode, params, wls, tree, rate_threshold,
+                               telemetry, graph, plan, step_budget, stop)
+    except BaseException:
+        try:
+            stream.synchronize()
+        except RuntimeError:
+            pass        # the error being raised says more
+        raise
+    stream.synchronize()
+    return res
+
+
+def _simulate_on(mode: int, params: SimParams, wls: FlatWorkload,
+                 tree: DTree, rate_threshold: torch.Tensor,
+                 telemetry: list | None, graph: bool,
+                 plan: flt.FaultPlan | None, step_budget: int | None,
+                 stop) -> SimResult:
     dev = params.exec_pe.device
     wl = _engine_workload(wls, dev)
     fcaps = flt.NO_CAPS if plan is None else flt.plan_capabilities(plan)
@@ -1297,16 +1347,22 @@ def _simulate(mode: int, params: SimParams, wls: FlatWorkload, tree: DTree,
                      else min(max_iters, step_budget))
     s = _init_state(ctx, wl, pe_slow)
     it = torch.zeros(ctx.S, dtype=torch.int64, device=dev)
+    # the occupancy counter is recorded into the step only when asked for
+    active = (None if telemetry is None
+              else torch.zeros(ctx.S, dtype=torch.int64, device=dev))
 
     def block(st, i):
         return _block(ctx, mode, params, st, wl, tree, rate_threshold, i,
-                      max_iters, plan, fcaps)
+                      max_iters, plan, fcaps, active)
 
     # poll any(running) (a host sync) before every block of POLL_EVERY;
     # with `graph`, the first block runs eagerly (the warm-up that loads
-    # every library) and the next one is captured, then replayed
+    # every library) and the next one is captured, then replayed. A set
+    # `stop` (a `threading.Event`) ends the sweep at the next poll.
     steps, replay = 0, None
     while bool(_running(wl, s, it, max_iters).any()):
+        if stop is not None and stop.is_set():
+            raise Stopped(f"stopped after {steps} super-steps")
         if graph and steps and replay is None:
             replay = _capture(block, s, it)
         if replay is None:
@@ -1316,8 +1372,12 @@ def _simulate(mode: int, params: SimParams, wls: FlatWorkload, tree: DTree,
         steps += POLL_EVERY
     res = _finalize(ctx, wl, s, it, max_iters)
     if telemetry is not None:
+        # occupancy: lane-super-steps run against those on which the
+        # lane was still running (counted on the device by `_block`)
         telemetry.append({"lanes": ctx.S, "steps": steps,
-                          "events": int(it.sum())})
+                          "events": int(it.sum()),
+                          "lane_trips": ctx.S * steps,
+                          "active_trips": int(active.sum())})
     return res
 
 
@@ -1325,7 +1385,7 @@ def simulate_batch(mode: int, params: SimParams, wls: FlatWorkload,
                    tree: DTree, rate_threshold: torch.Tensor,
                    telemetry: list | None = None,
                    plan: flt.FaultPlan | None = None,
-                   step_budget: int | None = None) -> SimResult:
+                   step_budget: int | None = None, stop=None) -> SimResult:
     """Run S scenarios to completion in one batch.
 
     `wls` is a stacked host workload (`workloads.stack_workloads`,
@@ -1335,21 +1395,25 @@ def simulate_batch(mode: int, params: SimParams, wls: FlatWorkload,
     `step_budget` caps each lane's events (`STALL_BUDGET`). When
     `telemetry` is a list, a record of this call's lanes, super-steps and
     retired events is appended. On a CUDA device the first block of
-    super-steps runs eagerly and the rest replay it from a CUDA graph.
+    super-steps runs eagerly and the rest replay it from a CUDA graph, on
+    a stream of the call's own. `stop` (a `threading.Event`), once set,
+    makes the call raise `Stopped` at its next poll.
     """
     return _simulate(mode, params, wls, tree, rate_threshold, telemetry,
-                     params.exec_pe.device.type == "cuda", plan, step_budget)
+                     params.exec_pe.device.type == "cuda", plan, step_budget,
+                     stop)
 
 
 def _simulate_eager(mode: int, params: SimParams, wls: FlatWorkload,
                     tree: DTree, rate_threshold: torch.Tensor,
                     telemetry: list | None = None,
                     plan: flt.FaultPlan | None = None,
-                    step_budget: int | None = None) -> SimResult:
+                    step_budget: int | None = None,
+                    stop=None) -> SimResult:
     """`simulate_batch` with every block run eagerly, on any device: the
     same kernels in the same order, for holding the captured path to it."""
     return _simulate(mode, params, wls, tree, rate_threshold, telemetry,
-                     False, plan, step_budget)
+                     False, plan, step_budget, stop)
 
 
 def result_at(res: SimResult, i: int) -> SimResult:
@@ -1381,38 +1445,86 @@ def run_batch(mode: int, wls, params: SimParams | None = None,
               tree: DTree | None = None, rate_threshold=1e9,
               batch_size: int | None = None, plan=None,
               step_budget: int | None = None, device="cuda",
-              telemetry: list | None = None) -> SimResult:
-    """Batched sweep over a scenario axis.
+              telemetry: list | None = None, devices=None,
+              stop=None) -> SimResult:
+    """Batched sweep over a scenario axis, split over `devices`.
 
     `wls` is a list of same-shape `FlatWorkload`s or an already-stacked
     one (host numpy, as `workloads` builds them). `tree` (fields with a
     leading `[S]` axis), `rate_threshold` (an `[S]` array) and `plan` (a
     `faults.FaultPlan`, stacked with `faults.stack_plans`) may vary per
     scenario; a plan without the axis is shared. `step_budget` caps each
-    scenario's events. `batch_size` cuts the axis into fixed-shape chunks;
-    the final chunk is padded by replaying the last scenario and the pad
-    lanes are dropped, so every chunk has the same shape and per-scenario
-    results do not depend on the chunking. Returns a `SimResult` of
-    tensors on `device`.
+    scenario's events. `batch_size` cuts the axis into fixed-shape
+    chunks; the final chunk is padded by replaying the last scenario and
+    the pad lanes are dropped, so every chunk has the same shape.
+
+    `devices` (see `_resolve_devices`; default `REPRO_BENCH_DEVICES`, else
+    every visible card for `device="cuda"`) splits each chunk's scenario
+    axis into equal parts, one a device (the chunk is rounded up to a
+    multiple of their count). Each part runs on its device, on a stream
+    and a captured graph of its own; parts on distinct cards run at the
+    same time, parts on a repeated device one after another. Lanes never
+    interact, so per-scenario results do not depend on the chunking, the
+    padding or the devices, bit for bit. Returns a `SimResult` of tensors
+    on `device`. When `telemetry` is a list, one record per part is
+    appended; `stop` is passed to each part (`simulate_batch`).
     """
     return _run_batch(simulate_batch, mode, wls, params, tree,
                       rate_threshold, batch_size, plan, step_budget, device,
-                      telemetry)
+                      telemetry, devices, stop)
+
+
+def _resolve_devices(devices=None, device="cuda") -> tuple:
+    """The `devices=` knob as a tuple of `torch.device`s. `None` reads
+    `REPRO_BENCH_DEVICES` when set, else takes every visible card when
+    `device` is `"cuda"` (no index), or else the one device named; an int
+    k takes the first k cards (on the CPU only 1 is in range); a sequence
+    of devices passes through, repeats allowed."""
+    if devices is None:
+        raw = os.environ.get("REPRO_BENCH_DEVICES")
+        if raw is not None and raw.strip():
+            try:
+                devices = int(raw.strip())
+            except ValueError:
+                raise ValueError(
+                    f"REPRO_BENCH_DEVICES={raw!r} is not an integer"
+                ) from None
+    dev = resolve(device)
+    cards = (tuple(torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count()))
+             if dev.type == "cuda" else (dev,))
+    if devices is None:
+        return cards if dev.type == "cuda" and dev.index is None else (dev,)
+    if isinstance(devices, int):
+        if not 1 <= devices <= len(cards):
+            raise ValueError(f"devices={devices} out of range "
+                             f"(1..{len(cards)} available)")
+        return cards[:devices]
+    return tuple(resolve(d) for d in devices)
+
+
+def _on_device(dev: torch.device):
+    """Make `dev` the thread's current CUDA device (no-op on the CPU)."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def _run_batch(simulate, mode: int, wls, params: SimParams | None = None,
                tree: DTree | None = None, rate_threshold=1e9,
                batch_size: int | None = None, plan=None,
                step_budget: int | None = None, device="cuda",
-               telemetry: list | None = None) -> SimResult:
-    """`run_batch` with each chunk run by `simulate` (`simulate_batch`, or
+               telemetry: list | None = None, devices=None,
+               stop=None) -> SimResult:
+    """`run_batch` with each part run by `simulate` (`simulate_batch`, or
     `_simulate_eager` to hold the captured path to the eager one)."""
     if batch_size is not None and batch_size <= 0:
         raise ValueError(f"batch_size must be positive, got {batch_size}")
     dev = resolve(device)
+    devs = _resolve_devices(devices, device)
     params = SimParams(*[x.to(dev) for x in (params or make_params(
         device=dev))])
-    tree = DTree(*[x.to(dev) for x in (tree or always_fast_tree(dev))])
+    tree = DTree(*[torch.as_tensor(x, device=dev)
+                   for x in (tree or always_fast_tree(dev))])
     stacked = wls if isinstance(wls, FlatWorkload) else stack_workloads(wls)
     n = int(stacked.task_type.shape[0])
     thr = torch.as_tensor(rate_threshold, dtype=torch.float32, device=dev)
@@ -1437,20 +1549,51 @@ def _run_batch(simulate, mode: int, wls, params: SimParams | None = None,
                 f"run_batch: batched plan has {plan.pe_fail_at.shape[0]} "
                 f"scenarios but the workload has {n}")
 
+    # the chunk: clamped to n, rounded up to a multiple of the devices
+    D = len(devs)
     B = n if batch_size is None else min(batch_size, n)
+    B = -(-B // D) * D
+    b = B // D
     n_pad = -(-n // B) * B
     # pad lanes replay the last real scenario; their results are dropped
     pad_idx = np.minimum(np.arange(n_pad), n - 1)
-    chunks = []
-    for lo in range(0, n_pad, B):
-        ids = pad_idx[lo:lo + B]
+    on_dev = {d: SimParams(*[x.to(d) for x in params]) for d in set(devs)}
+
+    def run_part(d: torch.device, ids: np.ndarray) -> SimResult:
         tids = torch.as_tensor(ids, device=dev)
         part = FlatWorkload(*[np.asarray(x)[ids] for x in stacked])
         part_plan = (flt.FaultPlan(*[x[ids] for x in plan]) if plan_b
                      else plan)
-        chunks.append(simulate(
-            mode, params, part, DTree(*[x[tids] for x in tree]), thr[tids],
-            telemetry=telemetry, plan=part_plan, step_budget=step_budget))
+        with _on_device(d):
+            return simulate(
+                mode, on_dev[d], part,
+                DTree(*[x[tids].to(d) for x in tree]), thr[tids].to(d),
+                telemetry=telemetry, plan=part_plan,
+                step_budget=step_budget, stop=stop)
+
+    def run_parts(parts: list) -> list:
+        return [run_part(d, ids) for d, ids in parts]
+
+    chunks = []
+    for lo in range(0, n_pad, B):
+        parts = [(d, pad_idx[lo + k * b:lo + (k + 1) * b])
+                 for k, d in enumerate(devs)]
+        if D == 1:
+            out = run_parts(parts)
+        else:
+            # one thread a device, each running its parts in order, so
+            # parts on distinct cards overlap; every thread is joined
+            by_dev: dict = {}
+            for k, (d, _) in enumerate(parts):
+                by_dev.setdefault(d, []).append(k)
+            out = [None] * D
+            with concurrent.futures.ThreadPoolExecutor(len(by_dev)) as ex:
+                futs = [(ks, ex.submit(run_parts, [parts[k] for k in ks]))
+                        for ks in by_dev.values()]
+                for ks, fut in futs:
+                    for k, r in zip(ks, fut.result()):
+                        out[k] = r
+        chunks.extend(SimResult(*[x.to(dev) for x in r]) for r in out)
     if len(chunks) == 1:
         return chunks[0]
     return SimResult(*[torch.cat(xs, 0)[:n] for xs in zip(*chunks)])

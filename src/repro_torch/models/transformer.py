@@ -30,9 +30,11 @@ def _supported(cfg, kind: str) -> None:
     if kind not in KINDS:
         raise NotImplementedError(f"block kind {kind!r} is not ported")
     if kind == "attn" and cfg.attn_impl == "mla":
-        raise NotImplementedError("MLA attention is not ported")
+        raise NotImplementedError(
+            "MLA attention is not ported (ROADMAP queue 1 item 7)")
     if cfg.mlp_type == "moe":
-        raise NotImplementedError("MoE MLPs are not ported")
+        raise NotImplementedError(
+            "MoE MLPs are not ported (ROADMAP queue 1 item 7)")
 
 
 # -------------------------- per-block init/apply ---------------------------

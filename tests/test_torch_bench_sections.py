@@ -310,9 +310,10 @@ def test_bench_run_writes_its_record(tmp_path, monkeypatch):
     bench_run.main(["--device", "cpu", "--only", "summary40,overhead",
                     "--json", str(path)])
     rec = json.loads(path.read_text())
-    assert set(rec) == {"total_s", "env", "derived", "kernels", "sweeps",
-                        "not_ported", "sections"}
+    assert set(rec) == {"total_s", "env", "derived", "campaign", "kernels",
+                        "sweeps", "not_ported", "sections"}
     assert rec["env"]["device"] == "cpu" and rec["env"]["n_instances"] == 4
+    assert rec["env"]["n_devices"] == 1 and rec["env"]["batch_size"] is None
     assert rec["env"]["train_grid"] == [len(common.SUBSET_MIXES),
                                         len(common.SUBSET_RATES)]
     assert rec["env"]["torch"] == torch.__version__
@@ -324,9 +325,40 @@ def test_bench_run_writes_its_record(tmp_path, monkeypatch):
     # the plain versions count no launch
     assert set(rec["kernels"]) == set(bench_run.ops.LAUNCHES)
     assert not any(rec["kernels"].values())
-    assert set(rec["not_ported"]) == {"serving_das", "roofline"}
+    assert set(rec["not_ported"]) == {"roofline"}
     labels = {s["label"] for s in rec["sweeps"]}
     assert {"oracle oracle", "oracle ETF", "grid DAS-EDP"} <= labels
+    # every sweep went through the campaign: one chunk each, none reused
+    camp = rec["campaign"]
+    assert camp["n_sweeps"] == len(rec["sweeps"]) == camp["n_chunks"]
+    assert camp["chunks_computed"] == camp["n_chunks"]
+    assert not (camp["retries"] or camp["timeouts"] or camp["oom_events"]
+                or camp["chunks_reused"] or camp["checkpoint_bytes"])
+    assert 0 < camp["occupancy"] <= 1
+    assert camp["steps"] == sum(s["steps"] for s in rec["sweeps"])
+
+
+def test_bench_run_resume_reuses_every_chunk(tmp_path, monkeypatch):
+    """`bench.run --resume DIR` checkpoints every sweep's chunks; the same
+    command again reuses all of them and gives the same sections."""
+    _small(monkeypatch)
+    recs = []
+    for k in (1, 2):
+        path = tmp_path / f"record_{k}.json"
+        bench_run.main(["--device", "cpu", "--only", "faults,serving_das",
+                        "--resume", str(tmp_path / "ckpt"), "--json",
+                        str(path)])
+        recs.append(json.loads(path.read_text()))
+    first, again = (r["campaign"] for r in recs)
+    assert first["chunks_computed"] == first["n_chunks"] > 0
+    assert first["checkpoint_bytes"] > 0
+    assert again["chunks_reused"] == first["n_chunks"]
+    assert again["chunks_computed"] == 0
+    results = [{k: v["result"] for k, v in r["sections"].items()}
+               for r in recs]
+    assert results[0] == results[1] and set(results[0]) == {
+        "faults", "serving_das"}
+    assert recs[1]["env"]["campaign_dir"] == str(tmp_path / "ckpt")
 
 
 def test_bench_run_refuses_the_reference_record(monkeypatch):

@@ -286,12 +286,29 @@ def test_registry_and_config_copy():
     assert {k: ref_values[k] for k in fields} == dataclasses.asdict(cfg)
     assert (cfg.n_layers, cfg.d_model, cfg.vocab) == (38, 4096, 256000)
     with pytest.raises(KeyError):
-        configs.get_config("yi-34b")
+        configs.get_config("no-such-arch")
     # MoE blocks are not ported (SSD blocks are: tests/test_torch_mamba.py)
     moe = dataclasses.replace(cfg, mlp_type="moe",
                               moe=configs.base.MoEConfig())
     with pytest.raises(NotImplementedError):
         transformer.block_init(torch.Generator(), moe, "rglru", 0)
+    # nor MLA attention: the registered MLA configs raise, not run
+    mla = configs.get_config("minicpm3-4b")
+    with pytest.raises(NotImplementedError, match="MLA"):
+        transformer.block_init(torch.Generator(), mla, "attn", 0)
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_every_registered_config_is_the_references(arch):
+    """All ten configs of the reference's registry, field by field, less
+    the four training, sharding and kernel fields the port drops."""
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
+    cfg, ref = configs.get_config(arch), jconfigs.get_config(arch)
+    dropped = {"remat", "scan_layers", "shard_strategy", "use_pallas"}
+    fields = {f.name for f in dataclasses.fields(cfg)}
+    assert fields == {f.name for f in dataclasses.fields(ref)} - dropped
+    ref_values = dataclasses.asdict(ref)
+    assert {k: ref_values[k] for k in fields} == dataclasses.asdict(cfg)
 
 
 def test_param_count_and_init_match_jax_shapes():

@@ -21,6 +21,7 @@
   kernel's fixed [R, P] is read from the CUDA source; the kernel itself
   is held to the plain version on the card, by `chip_smoke.py` phase 3.
 """
+import contextlib
 import functools
 import re
 from pathlib import Path
@@ -199,6 +200,51 @@ def test_graph_shaped_fault_blocks_match_plain_eager():
         got = sim._lanes(buf, S)
         assert got.numpy().tobytes() == getattr(eager, f).to(
             got.dtype).numpy().tobytes(), f
+
+
+class _FakeGraph:
+    """Stands in for `torch.cuda.CUDAGraph`: replay runs nothing."""
+
+    def replay(self):
+        pass
+
+
+@contextlib.contextmanager
+def _fake_capture(graph, stream=None, capture_error_mode=None):
+    yield
+
+
+@pytest.mark.parametrize("fails", [False, True], ids=["records", "fails"])
+def test_capture_leaves_launch_counts_as_it_found_them(monkeypatch, fails):
+    """`_capture` takes the launches recorded during capture back out of
+    `LAUNCHES` and adds them once a replay; a capture that fails after
+    its block recorded kernels (an out-of-memory part way through) leaves
+    the counts as they were, since the dead graph never launches. The
+    CUDA graph calls are stood in for; the counting is `_capture`'s."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _fake_capture)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: None)
+    counts = sim._kops.LAUNCHES
+    before = dict(counts)
+
+    def block(s, it):
+        counts["avail_rows"] += 3
+        if fails:
+            raise torch.OutOfMemoryError("CUDA out of memory")
+        return (s[0] + 1,), it + 1
+
+    s, it = (torch.zeros(2),), torch.zeros(2, dtype=torch.int64)
+    if fails:
+        with pytest.raises(torch.OutOfMemoryError):
+            sim._capture(block, s, it)
+        assert counts == before
+        return
+    replay = sim._capture(block, s, it)
+    assert counts == before
+    assert s[0].tolist() == [1.0, 1.0] and it.tolist() == [1, 1]
+    replay()
+    replay()
+    assert counts == {**before, "avail_rows": before["avail_rows"] + 6}
 
 
 def test_the_dispatch_mode_catches_a_sync():
