@@ -5,7 +5,7 @@
 Builds the CUDA kernels from `src/repro_torch/kernels/*/csrc/*.cu` into
 `build/repro_torch/` (one nvcc per source, all at once), holds each
 kernel to its plain PyTorch version on the card, and drives the port's
-three paths through them:
+paths through them:
 
   * the DAS scheduling pipeline (summary40 at the benchmark's full size:
     40 mixes x 14 rates, 60 frames per workload, 19 PEs), checked against
@@ -41,7 +41,24 @@ three paths through them:
     tokens with 32 greedy decode steps in bf16 (timed; the served logits
     held to the reference's own bf16 gap), then the same in fp32 with the
     served logits checked against scoring at 1e-4; and the model cut to 3
-    layers in fp32, card against CPU.
+    layers in fp32, card against CPU;
+  * DeepSeek-V2-Lite-16B at full width and depth (27 layers, MLA with
+    kv_lora 512, 64 routed experts top-6 + 2 shared, a dense layer 0,
+    vocab 102,400; bf16 at rest, random weights from a seed): scoring
+    4096 tokens and its loss, serving 4 prompts of 4096 with 32 greedy
+    decode steps at the no-drop MoE capacity, expanded and again
+    weight-absorbed, the served logits held to 1.5x the bf16 model's own
+    rounding and, in fp32, to 1e-4; no kernel launch (MLA
+    runs the plain attention, as in the reference); then the model cut
+    to 3 layers in fp32, card against CPU (logits, aux, loss, prefill,
+    both decodes, the experts chosen in every call), and bf16 at rest
+    bit-equal to fp32 at rest;
+  * the other configs at full width (MiniCPM3-4B, PaliGemma-3B with 256
+    prefix embeddings, MusicGen-medium with 4 codebooks, Phi-3-mini and
+    Yi-34B at full depth; Qwen2-72B cut to 32 of 80 layers and DBRX-132B
+    to 8 of 40, which one card cannot hold whole): scoring 4096 tokens
+    and its loss, serving 2 prompts of 1024 with 8 greedy steps, served
+    against scored, flash launches counted per attention layer.
 
 Phase 2 also builds three planted faults of the bf16 SSD kernel and
 three of the RG-LRU scan's TMA ring (copies of their sources with one
@@ -62,7 +79,10 @@ times the ring beside the generic kernel at both shapes in turns,
 failing unless the ring is the faster; it holds every SSD case's y to its
 dtype's limit and h_last to the fp32 one, fails unless the planted
 faults are rejected, and times the bf16 SSD kernel beside the fp32
-CUDA-core route at the same shape, failing unless it is the faster.
+CUDA-core route at the same shape, failing unless it is the faster. It
+holds flash to its plain version at the full-causal shapes of the GQA
+configs (MusicGen, Phi-3, Yi, Qwen2, DBRX at 1 x 4096) and times it there
+beside SDPA with `is_causal`, without failing when SDPA is the faster.
 Each phase prints its result and seconds; any failure raises and the
 exit code is not 0. The last line of standard output is `{"ok": true,
 "device": {...}}`; the line before it lists each kernel with its
@@ -71,6 +91,7 @@ call, the plain version's, the bound and the library call's time.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -645,6 +666,15 @@ FLASH_NONCAUSAL = ((1, 300, 4, 2, 64, 0, 0.0, "bfloat16"),
                    (1, 200, 4, 1, 128, 50, 0.0, "bfloat16"),
                    (1, 100, 2, 1, 32, 16, 0.0, "float32"))
 FLASH_PREFILL = (4, 4096, 16, 1, 256, 2048, 0.0, "bfloat16")  # RG-9B prefill
+# full-causal attention of the GQA paths that phase 12 runs, one sequence
+# of 4096 at each config's heads, KV heads and head width
+FLASH_PATHS = {
+    "musicgen-medium": (1, 4096, 24, 24, 64, 0, 0.0, "bfloat16"),
+    "phi3-mini-3.8b": (1, 4096, 32, 32, 96, 0, 0.0, "bfloat16"),
+    "yi-34b": (1, 4096, 56, 8, 128, 0, 0.0, "bfloat16"),
+    "qwen2-72b": (1, 4096, 64, 8, 128, 0, 0.0, "bfloat16"),
+    "dbrx-132b": (1, 4096, 48, 8, 128, 0, 0.0, "bfloat16"),
+}
 # a value width Dv other than the head width Dh (the wrapper pads the
 # narrower operands): B, S, H, K, Dh, Dv, window, softcap, dtype
 FLASH_DV_CASES = ((1, 300, 4, 2, 64, 32, 64, 0.0, "bfloat16"),
@@ -757,9 +787,10 @@ def _rg_timing(case) -> dict:
 
 
 def _flash_timing(case, iters, plain_iters) -> dict:
-    """The flash kernel, its plain version and SDPA with the same band mask
-    (the yardstick; the port never calls it) at one shape, with the
-    bound: the in-band pairs' FLOP at the bf16 rate against the bytes."""
+    """The flash kernel, its plain version and SDPA (the yardstick; the
+    port never calls it: with the same band mask, or `is_causal` without
+    a window) at one shape, with the bound: the in-band pairs' FLOP at
+    the bf16 rate against the bytes."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa, ref as far
@@ -767,8 +798,9 @@ def _flash_timing(case, iters, plain_iters) -> dict:
     q, k, v = _flash_inputs(case, 1)
     ok = far.band_mask(S, True, W, q.device)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok,
-                                         enable_gqa=True).transpose(1, 2)
+    mask = dict(is_causal=True) if W == 0 else dict(attn_mask=ok)
+    lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                         **mask).transpose(1, 2)
     lib_err = _max_abs_err(lib.float(), far.mha_reference(
         q, k, v, causal=True, window=W).float())
     del lib
@@ -781,7 +813,7 @@ def _flash_timing(case, iters, plain_iters) -> dict:
          "plain_ms": _device_ms(lambda: far.mha_reference(
              q, k, v, causal=True, window=W), iters=plain_iters),
          "library_ms": _device_ms(lambda: F.scaled_dot_product_attention(
-             qt, kt, vt, attn_mask=ok, enable_gqa=True), iters=iters),
+             qt, kt, vt, enable_gqa=True, **mask), iters=iters),
          "call_ms": _call_ms(lambda: fa.flash_attention_fwd(
              q, k, v, causal=True, window=W), iters=iters),
          "bound_ms": bound, "bound_by": by,
@@ -985,9 +1017,51 @@ def phase_lm_kernels(rg_fault_libs) -> dict:
         f"rg_lru cases bit-equal, {len(rg_faults)} rg_lru planted faults "
         f"rejected ({time.perf_counter() - t0:.1f}s)")
     torch.cuda.empty_cache()
+    paths = _flash_paths(err)
     return {"err": err, "timing": timing, "flash_prefill": prefill,
             "rg_prefill": rg_prefill, "flash_row_err": row_err,
-            "flash_faults": faults, "rg_faults": rg_faults}
+            "flash_faults": faults, "rg_faults": rg_faults,
+            "flash_paths": paths}
+
+
+def _flash_paths(err: dict) -> dict:
+    """The flash kernel at the full-causal shapes of phase 12's GQA paths:
+    held to its plain version (TOL_FLASH and the row check), then timed
+    beside the plain version, SDPA with `is_causal` and the bound. SDPA
+    may be the faster here: that is written down, not failed."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa, ref as far
+    t0 = time.perf_counter()
+    out = {}
+    for i, (arch, case) in enumerate(FLASH_PATHS.items()):
+        _, _, _, _, _, W, cap, dt = case
+        q, k, v = _flash_inputs(case, 300 + i)
+        got = fa.flash_attention_fwd(q, k, v, causal=True, window=W)
+        want = far.mha_reference(q, k, v, causal=True, window=W)
+        want32 = far.mha_reference(q.float(), k.float(), v.float(),
+                                   causal=True, window=W)
+        torch.cuda.synchronize()
+        e = _max_abs_err(got.float(), want.float())
+        r = _row_err(got, want32)
+        del q, k, v, got, want, want32
+        torch.cuda.empty_cache()
+        if e > TOL_FLASH[dt] or not r <= TOL_FLASH_ROW:
+            raise AssertionError(f"flash_attention at {arch}'s shape {case}: "
+                                 f"max abs err {e}, row err {r}")
+        err["flash_attention"] = max(err["flash_attention"], e)
+        t = _flash_timing(case, iters=10, plain_iters=1)
+        t.update(max_abs_err=e, row_err=r)
+        out[arch] = t
+        log(f"[3 kernels] flash_attention at {arch}'s {t['shape']} causal: "
+            f"max abs err {e:.3e}, row err {r:.3e}; device "
+            f"{t['ms'] * 1e3:.1f} us/call (plain {t['plain_ms'] * 1e3:.1f} "
+            f"us, SDPA is_causal {t['library_ms'] * 1e3:.1f} us: flash "
+            f"{t['library_ms'] / t['ms']:.2f}x SDPA's speed), bound "
+            f"{t['bound_ms'] * 1e3:.1f} us ({t['bound_by']}), "
+            f"{t['bound_ms'] / t['ms']:.1%} of the bound")
+    log(f"[3 kernels] flash_attention at {len(out)} full-causal path shapes "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return out
 
 
 # SSD scan cases: B, S, H, P, N, chunk, G, dtype
@@ -2144,6 +2218,387 @@ def phase_mamba_cross() -> None:
         raise AssertionError(f"card vs CPU rel {rel}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: DeepSeek-V2-Lite-16B (MLA + MoE) at full width and depth
+# ---------------------------------------------------------------------------
+DEEPSEEK = "deepseek-v2-lite-16b"
+NO_LAUNCHES = {"flash_attention": 0, "rg_lru": 0, "rg_lru_generic": 0,
+               "ssd_scan": 0}
+# DeepSeek's bf16 served logits against scoring: at full width a near tie
+# among 64 routed experts flips under bf16 rounding, and the gap (0.14 on
+# an H100 80GB HBM3 at 700 W) is far above TOL_SERVE, while the same
+# model in fp32 agrees to 3.4e-6. The reference's own bf16 gap at 27
+# layers and the test width (4 experts) is 0.0 for five seeds of six and
+# 5.8e-2 for one: no yardstick. So the served gap is held to 1.5x the bf16 model's own
+# rounding, its scored logits against the fp32 model's on the same
+# tokens, and greedy agreement to a floor below the first readings
+# (85.6-88.6% of 132 positions).
+SERVE_OF_ROUNDING = 1.5
+MIN_AGREE_DEEPSEEK_BF16 = 0.75
+
+
+def _reset_lm_launches() -> None:
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rg_lru import ops as rg_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    for ops in (fa_ops, rg_ops, ssd_ops):
+        ops.reset_launches()
+
+
+def _lm_launches() -> dict:
+    from repro_torch.bench import lm_serve
+    return lm_serve.launches()
+
+
+def _log_serve(tag: str, out: dict) -> None:
+    """The numbers of one `lm_serve.run`."""
+    chk = out["check"]
+    cut = (f" (cut from {out['full_layers']})"
+           if out.get("full_layers", out["n_layers"]) != out["n_layers"]
+           else "")
+    log(f"[{tag}] {out['arch']} {out['n_layers']} layers{cut}, d_model "
+        f"{out['d_model']}, vocab {out['vocab']}, {out['params']:,} params "
+        f"({out['active_params']:,} active; {out['rest_dtype']} at rest, "
+        f"{out['dtype']} compute), built from a seed in "
+        f"{out['build_s']:.2f}s")
+    shape = (f" x {out['n_codebooks']} codebooks" if out["n_codebooks"] > 1
+             else "")
+    if out["n_prefix_embeds"]:
+        shape += f" after {out['n_prefix_embeds']} prefix embeddings"
+    log(f"[{tag}] forward {out['score_batch']} x {out['score_len']} tokens"
+        f"{shape}: {out['forward_s']:.3f}s, "
+        f"{out['score_tok_per_s']:.0f} tok/s, "
+        f"launches {out['forward_launches']}; loss_fn {out['loss']:.6f} "
+        f"(ce {out['loss_ce']:.6f}, aux {out['aux']:.6f}) in "
+        f"{out['loss_s']:.3f}s")
+    log(f"[{tag}] prefill {out['batch']} x {out['prompt_len']} tokens: "
+        f"{out['prefill_s']:.3f}s, {out['prefill_tok_per_s']:.0f} tok/s, "
+        f"launches {out['prefill_launches']}; decode {out['decode_steps']} "
+        f"steps: {out['decode_ms_per_step']:.2f} ms/step, "
+        f"{out['decode_tok_per_s']:.1f} tok/s, launches "
+        f"{out['decode_launches']}")
+    log(f"[{tag}] peak memory {out['peak_mem_bytes'] / 2**30:.2f} GiB; "
+        f"served vs scored logits at {chk['positions']} positions: rel max "
+        f"abs {chk['rel_max_abs']:.3e} (tol {TOL_SERVE}), greedy argmax "
+        f"agrees at {chk['argmax_agree']:.1%}")
+
+
+def _scored_rows(p, cfg, tokens, P: int, T: int):
+    """Each row of tokens [B, S] scored alone on the card (routing at the
+    no-drop capacity depends on no other row), the head at positions
+    P-1 .. P+T-2: [B, T, vocab] fp32 on the CPU."""
+    from repro_torch.models import lm
+    rows = []
+    for b in range(tokens.shape[0]):
+        h, _, _ = lm.forward(p, cfg, tokens[b:b + 1].cuda(), head_mode="none")
+        rows.append(lm._head(p, cfg, h[:, P - 1:P - 1 + T])[..., :cfg.vocab]
+                    .float().cpu())
+        del h
+    import torch
+    return torch.cat(rows)
+
+
+def phase_deepseek() -> dict:
+    """Scoring 1 x 4096 and its loss at the published capacity factor,
+    then serving 4 prompts of 4096 with 32 greedy decode steps at the
+    no-drop capacity, expanded, and the same decode again weight-absorbed;
+    bf16 at rest (fp32 would take 62.8 GB before any activation). MLA
+    never calls flash. Then, with the same draws fp32 at rest, the checked
+    tokens scored in bf16 and fp32 (the bf16 model's own rounding), the
+    choices dropped at the published capacity, and the whole path in
+    fp32 (2 prompts of 1024, 8 steps), served against scored at 1e-4."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.bench import lm_serve
+    from repro_torch.models import lm, moe
+    t0 = time.perf_counter()
+    cfg = configs.get_config(DEEPSEEK)
+    _reset_lm_launches()
+    out = lm_serve.run(device="cuda", cfg=cfg, rest_dtype=torch.bfloat16)
+    kept = out.pop("kept")
+    torch.cuda.synchronize()
+    launches = _lm_launches()
+    if out["n_layers"] != 27 or out["d_model"] != 2048:
+        raise AssertionError(f"{out['n_layers']} layers, d_model "
+                             f"{out['d_model']}")
+    if launches != NO_LAUNCHES:
+        raise AssertionError(f"the DeepSeek path launched {launches}")
+    if not (out["forward_finite"] and out["serve_finite"]
+            and out["absorbed"]["serve_finite"]):
+        raise AssertionError("non-finite logits")
+    _log_serve("10 deepseek", out)
+    ab = out["absorbed"]
+    log(f"[10 deepseek] absorbed decode {out['decode_steps']} steps from the "
+        f"same prefill: {ab['decode_ms_per_step']:.2f} ms/step (expanded "
+        f"{out['decode_ms_per_step']:.2f}), served vs scored rel max abs "
+        f"{ab['check']['rel_max_abs']:.3e}, greedy argmax agrees at "
+        f"{ab['check']['argmax_agree']:.1%}; serving at capacity "
+        f"{out['serve_capacity_factor']:.4g} (no choice can drop); launches "
+        f"in all {launches} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    torch.cuda.empty_cache()
+
+    # the same draws fp32 at rest: bf16 compute casts them at use, bit for
+    # bit what bf16 at rest gives (phase 11)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t1 = time.perf_counter()
+    P, T = out["prompt_len"], out["decode_steps"] + 1
+    c16 = lm_serve.serving_config(cfg)
+    c32 = dataclasses.replace(c16, dtype="float32")
+    gaps = {}
+    with torch.inference_mode():
+        p = lm_serve.build(cfg, 0, "cuda")
+        for name, (toks, served) in kept.items():
+            s16 = _scored_rows(p, c16, toks, P, T)
+            s32 = _scored_rows(p, c32, toks, P, T)
+            chk = out["check"] if name == "expanded" else ab["check"]
+            gaps[name] = {"served": _rel(served, s16),
+                          "rounding": _rel(s16, s32),
+                          "agree": chk["argmax_agree"]}
+        with _expert_choices() as chosen:
+            lm.forward(p, cfg, kept["expanded"][0][:1, :4096].cuda())
+        kept_n = dropped = 0
+        for idx in chosen:
+            _, _, keep, _ = moe.dispatch(idx, cfg.moe.n_experts,
+                                         moe.capacity(cfg, idx.shape[1]))
+            kept_n, dropped = kept_n + keep.numel(), dropped + int(
+                (~keep).sum())
+        del p
+    torch.cuda.empty_cache()
+    for name, g in gaps.items():
+        log(f"[10 deepseek] {name}: served vs scored (each row alone) rel "
+            f"max abs {g['served']:.3e}; the bf16 model's own rounding, "
+            f"scored bf16 vs fp32 on the same tokens, {g['rounding']:.3e}: "
+            f"{g['served'] / g['rounding']:.2f}x it (limit "
+            f"{SERVE_OF_ROUNDING}x); greedy argmax agrees at "
+            f"{g['agree']:.1%} (floor {MIN_AGREE_DEEPSEEK_BF16:.0%})")
+        if not (g["served"] <= SERVE_OF_ROUNDING * g["rounding"]
+                and g["agree"] >= MIN_AGREE_DEEPSEEK_BF16):
+            raise AssertionError(f"{name} served logits off by "
+                                 f"{g['served']} (rounding {g['rounding']}), "
+                                 f"greedy agreement {g['agree']}")
+    log(f"[10 deepseek] scoring 1 x 4096 at the published capacity "
+        f"{cfg.moe.capacity_factor}: {dropped} of {kept_n} expert choices "
+        f"dropped ({dropped / kept_n:.1%}; random weights route unevenly, "
+        f"aux {out['aux']:.4f}) ({time.perf_counter() - t1:.1f}s)")
+
+    # the whole path in fp32, where served and scored must agree
+    t1 = time.perf_counter()
+    out32 = lm_serve.run(device="cuda", cfg=dataclasses.replace(
+        cfg, dtype="float32"), score_len=1024, batch=2, prompt_len=1024,
+        decode_steps=8)
+    torch.cuda.empty_cache()
+    chk32 = {"expanded": out32["check"],
+             "absorbed": out32["absorbed"]["check"]}
+    log(f"[10 deepseek] fp32 at full width and depth (fp32 at rest, peak "
+        f"{out32['peak_mem_bytes'] / 2**30:.2f} GiB): forward 1 x 1024 "
+        f"{out32['forward_s']:.3f}s, prefill 2 x 1024 {out32['prefill_s']:.3f}"
+        f"s, decode {out32['decode_ms_per_step']:.2f} ms/step; served vs "
+        f"scored rel max abs "
+        + ", ".join(f"{k} {v['rel_max_abs']:.3e}" for k, v in chk32.items())
+        + f" (tol {TOL_SERVE_F32}) ({time.perf_counter() - t1:.1f}s)")
+    for name, chk in chk32.items():
+        if chk["rel_max_abs"] > TOL_SERVE_F32:
+            raise AssertionError(f"fp32 {name} served logits off by "
+                                 f"{chk['rel_max_abs']}")
+    return {"launches": launches, "out": out, "gaps": gaps,
+            "dropped": dropped / kept_n, "out_f32": out32}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: DeepSeek cut to 3 layers at full width, fp32, card against CPU
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _expert_choices():
+    """Record the experts every MoE layer chooses, in call order."""
+    from repro_torch.models import moe
+    chosen = []
+    real = moe.router_topk
+
+    def recorded(logits, k):
+        out = real(logits, k)
+        chosen.append(out[1].cpu())
+        return out
+    moe.router_topk = recorded
+    try:
+        yield chosen
+    finally:
+        moe.router_topk = real
+
+
+def _deepseek_cut_run(p, cfg, toks, prompts, steps: int) -> dict:
+    """forward + aux, loss_fn, and prefill + `steps` decode steps expanded
+    and absorbed from the same caches (fp32), with the experts chosen."""
+    import dataclasses
+    import torch
+    from repro_torch.models import lm
+    out = {}
+    with _expert_choices() as chosen:
+        logits, _, aux = lm.forward(p, cfg, toks)
+        out["forward"], out["aux"] = logits.cpu(), float(aux)
+        out["loss"] = float(lm.loss_fn(p, cfg, {"tokens": toks,
+                                                "labels": toks})[0])
+        P = prompts.shape[1]
+        caches = lm.init_caches(cfg, prompts.shape[0], P + steps,
+                                dtype=torch.float32, device=toks.device)
+        last, caches = lm.prefill(p, cfg, prompts, caches)
+        out["prefill"] = last.cpu()
+        for name, c in (("expanded", cfg),
+                        ("absorbed", dataclasses.replace(cfg,
+                                                         mla_absorb=True))):
+            tok, served = last.argmax(-1), []
+            for i in range(steps):
+                logits, caches = lm.decode_step(p, c, tok, P + i, caches)
+                served.append(logits.cpu())
+                tok = logits.argmax(-1)
+            out[name] = torch.stack(served, 1)
+    out["experts"] = chosen
+    return out
+
+
+def phase_deepseek_cross() -> None:
+    """The dense layer and two MoE layers at full width in fp32: card
+    against CPU within 1e-4 (forward, aux, loss, prefill, decode expanded
+    and absorbed), the same experts chosen in every call; and, in bf16
+    compute, bf16 at rest against fp32 at rest on the card, bit for bit."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.bench import lm_serve
+    from repro_torch.models import lm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get_config(DEEPSEEK), n_layers=3,
+                              dtype="float32")
+    with torch.inference_mode():
+        p = lm_serve.build(cfg, 11, "cuda")
+        g = torch.Generator(device="cuda").manual_seed(12)
+        toks = torch.randint(0, cfg.vocab, (1, 256), generator=g,
+                             device="cuda")
+        prompts = torch.randint(0, cfg.vocab, (2, 64), generator=g,
+                                device="cuda")
+        card = _deepseek_cut_run(p, cfg, toks, prompts, 4)
+        p.to("cpu")
+        torch.cuda.empty_cache()
+        cpu = _deepseek_cut_run(p, cfg, toks.cpu(), prompts.cpu(), 4)
+        del p
+        n_moe = len(card["experts"])
+        same = (n_moe == len(cpu["experts"]) and all(
+            torch.equal(a, b) for a, b in zip(card["experts"],
+                                              cpu["experts"])))
+        rels = {k: _rel(card[k][..., :cfg.vocab], cpu[k][..., :cfg.vocab])
+                for k in ("forward", "prefill", "expanded", "absorbed")}
+        rels["aux"] = abs(card["aux"] - cpu["aux"]) / abs(cpu["aux"])
+        rels["loss"] = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+        log(f"[11 deepseek-cross] 3 layers (dense, MoE, MoE) at d_model "
+            f"{cfg.d_model}, 64 experts top-6, vocab {cfg.vocab}, fp32, "
+            f"forward and loss 1 x 256, prefill 2 x 64 + 4 decode steps "
+            f"expanded and absorbed: card vs CPU rel "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+            + f" (tol {TOL_CROSS_F32}); loss {card['loss']:.6f} / "
+            f"{cpu['loss']:.6f}; experts chosen equal in all {n_moe} MoE "
+            f"calls: {same}")
+        if not same:
+            raise AssertionError("card and CPU chose other experts")
+        bad = {k: v for k, v in rels.items() if not v <= TOL_CROSS_F32}
+        if bad:
+            raise AssertionError(f"card vs CPU rel {bad}")
+        # bf16 compute: bf16 at rest against fp32 at rest, bit for bit
+        cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+        p32 = lm_serve.build(cfg16, 13, "cuda")
+        a, _, _ = lm.forward(p32, cfg16, toks)
+        del p32
+        torch.cuda.empty_cache()
+        p16 = lm_serve.build(cfg16, 13, "cuda", torch.bfloat16)
+        b, _, _ = lm.forward(p16, cfg16, toks)
+        del p16
+        equal = torch.equal(a, b)
+        log(f"[11 deepseek-cross] bf16 compute, 1 x 256 tokens: bf16 at rest "
+            f"against fp32 at rest on the card bit-equal: {equal} "
+            f"({time.perf_counter() - t0:.1f}s)")
+        if not equal:
+            raise AssertionError("bf16 at rest changed the logits")
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the other newly enabled configs at full width
+# ---------------------------------------------------------------------------
+# (arch, layers kept or None for all, flash launches per forward): one card
+# holds neither Qwen2-72B (145 GB in bf16) nor DBRX-132B (263 GB), so they
+# are cut in depth; MLA (MiniCPM3) and a prefix (PaliGemma) run the plain
+# attention, as in the reference
+PHASE12 = (
+    ("minicpm3-4b", None, 0),
+    ("paligemma-3b", None, 0),
+    ("musicgen-medium", None, 48),
+    ("phi3-mini-3.8b", None, 32),
+    ("yi-34b", None, 60),
+    ("qwen2-72b", 32, 32),
+    ("dbrx-132b", 8, 8),
+)
+
+
+def phase_configs() -> dict:
+    """Each config scoring 1 x 4096 with its loss, then serving 2 prompts
+    of 1024 with 8 greedy steps (MoE at its no-drop capacity), served
+    against scored at TOL_SERVE, bf16 at rest; flash launches asserted: one per
+    attention layer per forward, loss and check, none in prefill and
+    decode (attention over a cache is the plain `sdpa`, as in the
+    reference)."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.bench import lm_serve
+    t0 = time.perf_counter()
+    _reset_lm_launches()
+    outs = {}
+    for arch, keep, flash in PHASE12:
+        full = configs.get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=keep) if keep else full
+        t1 = time.perf_counter()
+        out = lm_serve.run(device="cuda", cfg=cfg, rest_dtype=torch.bfloat16,
+                           batch=2, prompt_len=1024, decode_steps=8)
+        out.pop("kept")
+        out["full_layers"] = full.n_layers
+        torch.cuda.empty_cache()
+        _log_serve("12 configs", out)
+        per_call = dict(NO_LAUNCHES, flash_attention=flash)
+        for key, want in (("forward_launches", per_call),
+                          ("loss_launches", per_call),
+                          ("prefill_launches", NO_LAUNCHES),
+                          ("decode_launches", NO_LAUNCHES)):
+            if out[key] != want:
+                raise AssertionError(f"{arch} {key}: {out[key]}, expected "
+                                     f"{want}")
+        if out["check"]["launches"] != per_call:
+            raise AssertionError(f"{arch}: check {out['check']['launches']}")
+        if not (out["forward_finite"] and out["serve_finite"]):
+            raise AssertionError(f"{arch}: non-finite logits")
+        checks = {"": out["check"]}
+        if "absorbed" in out:              # MLA: the absorbed decode too
+            ab = out["absorbed"]
+            checks[" absorbed"] = ab["check"]
+            log(f"[12 configs] absorbed decode: {ab['decode_ms_per_step']:.2f}"
+                f" ms/step, served vs scored rel max abs "
+                f"{ab['check']['rel_max_abs']:.3e}, greedy argmax agrees at "
+                f"{ab['check']['argmax_agree']:.1%}")
+        for name, chk in checks.items():
+            if chk["rel_max_abs"] > TOL_SERVE:
+                raise AssertionError(f"{arch}{name}: served logits off by "
+                                     f"{chk['rel_max_abs']}")
+        log(f"[12 configs] {arch} done ({time.perf_counter() - t1:.1f}s)")
+        outs[arch] = out
+    torch.cuda.synchronize()
+    launches = _lm_launches()
+    log(f"[12 configs] {len(outs)} configs, launches in all {launches} "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return {"launches": launches, "outs": outs}
+
+
 ETF_SRC = "src/repro_torch/kernels/etf_ft/csrc/etf_ft.cu"
 KERNELS = (  # name, source, TPU kernel replaced, path
     ("etf_ft_search_masked", ETF_SRC,
@@ -2178,6 +2633,9 @@ def main() -> int:
     phase_lm_cross()
     mamba_path = phase_mamba()
     phase_mamba_cross()
+    ds_path = phase_deepseek()
+    phase_deepseek_cross()
+    cfg_path = phase_configs()
     checked = {"das": kern, "lm": lm_kern, "mamba": ssd_kern}
     # the DAS kernels' launches over its four paths: summary40 (phase
     # 4), the fault path (5b), the benchmark's sections (5c) and the
@@ -2185,7 +2643,11 @@ def main() -> int:
     das_launches = {k: das_path["launches"][k] + fault_path["launches"][k]
                     + sections["launches"][k] + campaign_path["launches"][k]
                     for k in das_path["launches"]}
-    launched = {"das": das_launches, "lm": lm_path["launches"],
+    # flash over its three model paths: RecurrentGemma (phase 6), and the
+    # GQA configs of phase 12; DeepSeek (phase 10) launches none
+    lm_launches = {k: lm_path["launches"][k] + ds_path["launches"][k]
+                   + cfg_path["launches"][k] for k in lm_path["launches"]}
+    launched = {"das": das_launches, "lm": lm_launches,
                 "mamba": mamba_path["launches"]}
     rows = []
     for name, source, replaces, path in KERNELS:

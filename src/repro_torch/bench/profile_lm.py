@@ -1,19 +1,25 @@
 """Where LM inference time goes on the GPU.
 
-    python -m repro_torch.bench.profile_lm [--arch mamba2-780m]
-        [--score-batch 4] [--decode-steps 8]
+    python -m repro_torch.bench.profile_lm [--arch deepseek-v2-lite-16b]
+        [--score-batch 4] [--decode-steps 8] [--rest-dtype bfloat16]
 
 Builds the full-width model of `--arch` (default recurrentgemma-9b) from
-a seed (as `lm_serve` does), warms each phase up once, then traces with
-`torch.profiler`: one `forward` of [`--score-batch`, 4096] tokens
-(default 1), one `prefill` of [4, 4096] and `--decode-steps` decode
-steps at batch 4.
+a seed (as `lm_serve.build`, fp32 or bf16 at rest), warms each phase up
+once, then traces with `torch.profiler`: one `forward` of
+[`--score-batch`, 4096] tokens (default 1), one `prefill` of [4, 4096]
+and `--decode-steps` decode steps at batch 4, served as `lm_serve`
+serves (`serving_config`: a MoE model at its no-drop capacity; an MLA
+model's decode traced a second time with `mla_absorb`). A prefix model
+gets its prefix embeddings, a multi-codebook model [B, K, S] tokens.
 Prints one JSON line per phase: wall and device-busy milliseconds, the
 device's idle share, kernel launches, and device time by kernel group
 (GEMMs, each hand-written kernel, copies and casts, other elementwise
-and reduction kernels) and by the kernels that take most of it. Wall
-time is taken around the traced region, which ends in a synchronize, so
-it includes the profiler's own cost.
+and reduction kernels), by model region (`moe`: each MoE MLP, its GEMMs
+apart from its dispatch, i.e. the router's softmax, the sort, gathers and
+scatters; `mla`: each MLA attention, its GEMMs apart from the rest:
+scores, mask, softmax, casts) and by the kernels that take most of it.
+Wall time is taken around the traced region, which ends in a
+synchronize, so it includes the profiler's own cost.
 """
 from __future__ import annotations
 
@@ -22,13 +28,16 @@ import json
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
+
+import contextlib
+import dataclasses
 
 from repro_torch import configs
-from repro_torch.bench.lm_serve import build
+from repro_torch.bench.lm_serve import build, serving_config
 from repro_torch.bench.profile_sweep import _device_us
 from repro_torch.core.device import resolve
-from repro_torch.models import lm
+from repro_torch.models import lm, mla, moe
 
 GROUPS = (  # first match wins
     ("flash_attention", ("flash_fwd",)),  # both dtypes' kernels
@@ -47,17 +56,60 @@ def _group(name: str) -> str:
     return "other"
 
 
+REGIONS = (("moe", moe, "moe_apply"), ("mla", mla, "mla_apply"))
+
+
+@contextlib.contextmanager
+def _regions():
+    """Each MoE MLP and MLA attention call inside a profiler range named
+    after its region, for the time of the trace."""
+    saved = [(mod, name, getattr(mod, name)) for _, mod, name in REGIONS]
+    for region, mod, name in REGIONS:
+        fn = getattr(mod, name)
+
+        def wrapped(*a, _fn=fn, _region=region, **k):
+            with record_function(_region):
+                return _fn(*a, **k)
+        setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _region_ms(prof, steps: int) -> dict:
+    """Device ms a step of the kernels launched inside each region's
+    ranges, GEMMs apart from the rest."""
+    out: dict = {}
+    regions = {name for name, _, _ in REGIONS}
+    for e in prof.events():
+        if e.name not in regions:
+            continue
+        todo = [e]
+        while todo:
+            ev = todo.pop()
+            todo.extend(ev.cpu_children)
+            for k in getattr(ev, "kernels", ()):
+                part = "gemm" if _group(k.name) == "gemm" else "rest"
+                key = f"{e.name}_{part}"
+                out[key] = out.get(key, 0.0) + k.duration / 1e3 / steps
+    return out
+
+
 def _trace(fn, steps: int = 1) -> dict:
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _regions(), profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    regions = {name for name, _, _ in REGIONS}
     gpu = [e for e in prof.key_averages() if _device_us(e) > 0 and
-           str(getattr(e, "device_type", "")).endswith("CUDA")]
+           str(getattr(e, "device_type", "")).endswith("CUDA")
+           and e.key not in regions]     # a range's span is no kernel
     busy = sum(_device_us(e) for e in gpu)
     groups: dict = {}
     for e in gpu:
@@ -70,6 +122,7 @@ def _trace(fn, steps: int = 1) -> dict:
         "device_idle_share": 1.0 - busy / 1e6 / wall,
         "kernels": sum(e.count for e in gpu) / steps,
         "device_ms_by_group": groups,
+        "device_ms_by_region": _region_ms(prof, steps),
         "top_kernels": [{"name": e.key[:70], "calls": e.count / steps,
                          "device_ms": _device_us(e) / 1e3 / steps}
                         for e in top]}
@@ -77,44 +130,63 @@ def _trace(fn, steps: int = 1) -> dict:
 
 def run(device="cuda", seed: int = 0, seq: int = 4096, batch: int = 4,
         decode_steps: int = 8, arch: str = "recurrentgemma-9b",
-        score_batch: int = 1) -> dict:
+        score_batch: int = 1, rest_dtype=None) -> dict:
     dev = resolve(device)
     if dev.type != "cuda":
         raise RuntimeError("profile_lm measures the GPU; it has no CPU mode")
     cfg = configs.get_config(arch)
+    scfg = serving_config(cfg)
+    K, npre = cfg.n_codebooks, cfg.n_prefix_embeds
     out = {"device": torch.cuda.get_device_name(dev), "arch": cfg.name,
-           "dtype": cfg.dtype, "score_batch": score_batch}
+           "dtype": cfg.dtype,
+           "rest_dtype": str(rest_dtype or torch.float32).removeprefix(
+               "torch."),
+           "score_batch": score_batch}
     with torch.inference_mode():
-        p = build(cfg, seed, dev)
+        p = build(cfg, seed, dev, rest_dtype)
         g = torch.Generator(device=dev).manual_seed(seed + 1)
-        toks = torch.randint(0, cfg.vocab, (score_batch, seq),
-                             generator=g, device=dev)
-        prompts = torch.randint(0, cfg.vocab, (batch, seq), generator=g,
-                                device=dev)
-        max_len = seq + 2 * decode_steps + 1
+
+        def tokens(n):
+            shape = (n, K, seq) if K > 1 else (n, seq)
+            return torch.randint(0, cfg.vocab, shape, generator=g,
+                                 device=dev)
+
+        def prefix(n):
+            return (0.02 * torch.randn((n, npre, cfg.d_model), generator=g,
+                                       device=dev) if npre else None)
+
+        toks, tpe = tokens(score_batch), prefix(score_batch)
+        prompts, ppe = tokens(batch), prefix(batch)
+        max_len = npre + seq + 2 * decode_steps + 1
 
         def caches():
-            return lm.init_caches(cfg, batch, max_len,
+            return lm.init_caches(scfg, batch, max_len,
                                   dtype=lm.compute_dtype(cfg), device=dev)
 
         def forward():
-            lm.forward(p, cfg, toks)
+            lm.forward(p, cfg, toks, prefix_embeds=tpe)
 
         forward()
         out["forward"] = _trace(forward)
         c = caches()
-        lm.prefill(p, cfg, prompts, c)
+        lm.prefill(p, scfg, prompts, c, prefix_embeds=ppe)
         c = caches()
-        out["prefill"] = _trace(lambda: lm.prefill(p, cfg, prompts, c))
-        tok = prompts[:, -1]
-        pos = [seq]
+        out["prefill"] = _trace(lambda: lm.prefill(p, scfg, prompts, c,
+                                                   prefix_embeds=ppe))
+        tok = prompts[..., -1]
+        variants = [("decode", scfg)]
+        if cfg.attn_impl == "mla":
+            variants.append(("decode_absorbed",
+                             dataclasses.replace(scfg, mla_absorb=True)))
+        for name, dcfg in variants:
+            pos = [npre + seq]
 
-        def step():
-            lm.decode_step(p, cfg, tok, pos[0], c)
-            pos[0] += 1
+            def step():
+                lm.decode_step(p, dcfg, tok, pos[0], c)
+                pos[0] += 1
 
-        step()
-        out["decode"] = _trace(step, decode_steps)
+            step()
+            out[name] = _trace(step, decode_steps)
     return out
 
 
@@ -125,12 +197,17 @@ def main() -> None:
                     choices=configs.ARCH_IDS)
     ap.add_argument("--score-batch", type=int, default=1)
     ap.add_argument("--decode-steps", type=int, default=8)
+    ap.add_argument("--rest-dtype", choices=("float32", "bfloat16"),
+                    default="float32")
     a = ap.parse_args()
     res = run(a.device, decode_steps=a.decode_steps, arch=a.arch,
-              score_batch=a.score_batch)
-    for phase in ("forward", "prefill", "decode"):
-        print(json.dumps({"phase": phase, "device": res["device"],
-                          "arch": res["arch"], **res[phase]}))
+              score_batch=a.score_batch,
+              rest_dtype=None if a.rest_dtype == "float32"
+              else torch.bfloat16)
+    for phase in ("forward", "prefill", "decode", "decode_absorbed"):
+        if phase in res:
+            print(json.dumps({"phase": phase, "device": res["device"],
+                              "arch": res["arch"], **res[phase]}))
 
 
 if __name__ == "__main__":

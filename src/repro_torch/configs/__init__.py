@@ -1,11 +1,10 @@
 """Config registry of the port: `get_config(arch)` / `get_smoke_config`.
 
 Every architecture the JAX package registers is listed, its config a
-copy of the reference's. The serving cost model reads any of them; the
-model path runs RecurrentGemma and Mamba-2, and raises
-`NotImplementedError` for the families it lacks (MLA, MoE,
-multi-codebook heads, prefix embeddings; ROADMAP queue 1 item 7). An
-unknown name raises `KeyError`, as in the JAX package.
+copy of the reference's, and the model path (`repro_torch.models`) runs
+each of them: GQA, MLA, MoE, RG-LRU and SSD blocks, multi-codebook heads
+and prefix embeddings. The serving cost model reads them too. An unknown
+name raises `KeyError`, as in the JAX package.
 """
 from __future__ import annotations
 

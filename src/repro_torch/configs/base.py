@@ -2,8 +2,7 @@
 
 The fields are the reference's, less its training, sharding and kernel
 knobs (`remat`, `scan_layers`, `shard_strategy`, `use_pallas`): the port
-picks a kernel by the device of the tensors, not by a flag. The
-sub-configs of families the port does not run yet are kept as data.
+picks a kernel by the device of the tensors, not by a flag.
 """
 from __future__ import annotations
 

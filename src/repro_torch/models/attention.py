@@ -3,10 +3,11 @@ decode paths, and the flash kernel, on the JAX package's
 `models/attention.py` with the semantics it has under `use_pallas=True`.
 
 Without a prefix, attention over a fresh sequence goes to
-`kernels/flash_attention` (the CUDA kernel on the GPU, its plain version
-on the CPU); attention over a cache goes to the plain `sdpa`, as in the
-reference. The reference's `banded_sdpa` serves only its
-`use_pallas=False` branch and is not ported.
+`kernels/flash_attention`: the CUDA kernel on the GPU; on the CPU its
+plain version, or `banded_sdpa` for a windowed sequence the reference's
+dispatch would band (S a multiple of the window and at least two
+windows). Attention over a cache, or with a prefix, goes to the plain
+`sdpa`, as in the reference.
 
 The caches are updated in place (the reference returns new arrays), which
 saves a copy of each cache per step; the functions still return the
@@ -176,12 +177,51 @@ def attn_apply(p, cfg, x, positions, prefix_len=None, window: int = 0,
     return y, cache
 
 
+def banded_sdpa(q, k, v, positions, window: int, softcap: float = 0.0):
+    """Block-banded local attention: O(S*w) memory/compute instead of the
+    naive O(S^2). Queries in blocks of `window` attend to their own block
+    and the previous one. Requires S % window == 0."""
+    B, S, H, Dh = q.shape
+    K = k.shape[2]
+    w = window
+    nb = S // w
+    qb = q.reshape(B, nb, w, H, Dh)
+    kb = k.reshape(B, nb, w, K, Dh)
+    vb = v.reshape(B, nb, w, K, Dh)
+    zeros = torch.zeros_like(kb[:, :1])
+    k2 = torch.cat([torch.cat([zeros, kb[:, :-1]], 1), kb], 2)
+    v2 = torch.cat([torch.cat([zeros, vb[:, :-1]], 1), vb], 2)
+    posb = positions.reshape(B, nb, w)
+    negs = torch.full_like(posb[:, :1], -1)
+    pos2 = torch.cat([torch.cat([negs, posb[:, :-1]], 1), posb], 2)
+    G = H // K
+    qb = qb.reshape(B, nb, w, K, G, Dh)
+    scores = torch.einsum("bnqkgd,bnskd->bnkgqs", qb.float(), k2.float())
+    scores = scores / math.sqrt(Dh)
+    if softcap:
+        scores = torch.tanh(scores / softcap) * softcap
+    ok = ((pos2[:, :, None, :] <= posb[:, :, :, None])
+          & (pos2[:, :, None, :] > posb[:, :, :, None] - w)
+          & (pos2[:, :, None, :] >= 0))              # [B,nb,w,2w]
+    bias = torch.zeros(ok.shape, dtype=torch.float32, device=ok.device)
+    bias = bias.masked_fill_(~ok, float("-inf"))[:, :, None, None]
+    wgt = torch.softmax(scores + bias, dim=-1).to(v.dtype)
+    out = torch.einsum("bnkgqs,bnskd->bnqkgd", wgt, v2)
+    return out.reshape(B, S, H, Dh)
+
+
 def _sdpa_dispatch(cfg, q, k, v, positions, window, prefix_len):
     """Attention over a fresh sequence at positions 0..S-1. Without a
     prefix it is the flash kernel, as under the reference's
-    `use_pallas=True`; the [B, 1, S, S] mask bias is built only for the
-    plain path that reads it."""
+    `use_pallas=True`, whose plain version on the CPU is `banded_sdpa`
+    where the reference's plain dispatch takes it; the [B, 1, S, S] mask
+    bias is built only for the plain path that reads it."""
+    S = q.shape[1]
     if prefix_len is None:
+        if (q.device.type == "cpu" and window and S == k.shape[1]
+                and S % window == 0 and S >= 2 * window):
+            return banded_sdpa(q, k, v, positions, window,
+                               cfg.logit_softcap)
         return flash_ops.flash_attention(q, k, v, causal=True,
                                          window=window,
                                          softcap=cfg.logit_softcap)

@@ -4,7 +4,9 @@
 with every leaf turned into a numpy array (`jax.tree.map(np.asarray,
 params)`) and returns the port's `LM` on `device`. The reference stacks
 each pattern slot's layers along a leading group axis; here each group's
-slice becomes its own layer module, `stack["groups"][slot][g]`.
+slice becomes its own layer module, `stack["groups"][slot][g]`. Nested
+trees (a MoE layer's `shared` experts) and leaves of any rank ([E, d, f]
+expert stacks, [K, V, D] codebook embeddings) are copied as they are.
 """
 from __future__ import annotations
 

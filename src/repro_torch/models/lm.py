@@ -1,9 +1,17 @@
 """Language-model wrapper of the port: embeddings, the block stack, the
-tied head, and the scoring and serving entry points, on the JAX
+heads, the LM loss, and the scoring and serving entry points, on the JAX
 package's `models/lm.py`.
+
+Batch conventions, as in the reference:
+    tokens  [B, S], or [B, K, S] for K codebook streams (MusicGen)
+    labels  same shape, -100 = ignore
+    prefix_embeds [B, P, D] optional (PaliGemma's patch embeddings, a
+        stub frontend), put before the token embeddings; the prefix
+        positions attend to each other both ways when cfg.prefix_lm.
 
 scoring:
     forward(p, cfg, tokens, caches=None) -> (logits, None, aux)
+    loss_fn(p, cfg, batch) -> (loss, metrics)
 serving:
     init_caches(cfg, batch, max_len) -> caches
     prefill(p, cfg, tokens, caches) -> (last_logits, caches)
@@ -11,12 +19,11 @@ serving:
 
 Parameters live in an `LM` module whose parameter names are the
 reference's dict keys; the functions on tensors are plain functions, as
-in the reference. `loss_fn`, training, multi-codebook streams and prefix
-embeddings are not ported.
+in the reference. `loss_fn` scores: the port has no gradient step.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -24,56 +31,82 @@ from repro_torch.core.device import resolve
 from repro_torch.models import modules as nn
 from repro_torch.models import transformer
 
+IGNORE = -100
+
 
 class LM(nn.Params):
-    """All parameters of one model: `embed` [V, D], `stack` ("prologue": a
-    list of layers, "groups": per pattern slot a list of layers, one per
-    group), `final_norm` [D] and, when untied, `head` [D, V]."""
+    """All parameters of one model: `embed` [V, D] ([K, V, D] for K
+    codebooks), `stack` ("prologue": a list of layers, "groups": per
+    pattern slot a list of layers, one per group), `final_norm` [D] and,
+    when untied, `head` [D, V] ([K, D, V])."""
 
 
 def compute_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _supported(cfg) -> None:
-    if cfg.n_codebooks > 1:
-        raise NotImplementedError("multi-codebook models are not ported")
+def embed_init(generator: torch.Generator, cfg) -> torch.Tensor:
+    K, V = cfg.n_codebooks, cfg.vocab_padded
+    shape = (K, V, cfg.d_model) if K > 1 else (V, cfg.d_model)
+    return nn.truncated_normal(generator, shape, 0.02)
+
+
+def head_init(generator: torch.Generator, cfg) -> torch.Tensor:
+    K, V = cfg.n_codebooks, cfg.vocab_padded
+    shape = (K, cfg.d_model, V) if K > 1 else (cfg.d_model, V)
+    return nn.truncated_normal(generator, shape, 0.02)
 
 
 def lm_init(cfg, generator: torch.Generator, device="cuda") -> LM:
     """Random parameters drawn from `generator`, which must live on
-    `device` (the GPU unless the caller asks for the CPU)."""
+    `device` (the GPU unless the caller asks for the CPU): the embedding,
+    the stack in `transformer.init_order`, then the untied head."""
     cfg.validate()
-    _supported(cfg)
     dev = resolve(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on "
                          f"{dev}: draw them on the same device")
-    V = cfg.vocab_padded
     p: Dict[str, Any] = {
-        "embed": nn.truncated_normal(generator, (V, cfg.d_model), 0.02),
+        "embed": embed_init(generator, cfg),
         "stack": transformer.stack_init(generator, cfg),
         "final_norm": torch.ones(cfg.d_model, device=generator.device),
     }
     if not cfg.tie_embeddings:
-        p["head"] = nn.truncated_normal(generator, (cfg.d_model, V), 0.02)
+        p["head"] = head_init(generator, cfg)
     return LM(p)
+
+
+def _scale(cfg, dt):
+    """cfg.embed_scale rounded to the compute dtype, as jnp.asarray does."""
+    return float(torch.tensor(cfg.embed_scale, dtype=dt))
 
 
 def _embed(p, cfg, tokens):
     """Gather, then cast: the same values as the reference's cast of the
-    whole table before the gather, without the table-sized copy."""
+    whole table before the gather, without the table-sized copy. K
+    codebooks' embeddings are summed in order in the compute dtype."""
     dt = compute_dtype(cfg)
-    x = p["embed"][tokens].to(dt)
+    if cfg.n_codebooks > 1:           # tokens [B, K, S]
+        x = p["embed"][0][tokens[:, 0]].to(dt)
+        for k in range(1, cfg.n_codebooks):
+            x = x + p["embed"][k][tokens[:, k]].to(dt)
+    else:
+        x = p["embed"][tokens].to(dt)
     if cfg.embed_scale:
-        # the scale rounded to the compute dtype first, as jnp.asarray does
-        x = x * float(torch.tensor(cfg.embed_scale, dtype=dt))
+        x = x * _scale(cfg, dt)
     return x
 
 
 def _head(p, cfg, x):
+    """x [B, S, D] -> logits [B, S, V] ([B, K, S, V] for K codebooks)."""
     if cfg.tie_embeddings:
-        logits = nn.linear(x, p["embed"].to(x.dtype).T)
+        if cfg.n_codebooks > 1:
+            logits = torch.einsum("bsd,kvd->bksv", x,
+                                  p["embed"].to(x.dtype))
+        else:
+            logits = nn.linear(x, p["embed"].to(x.dtype).T)
+    elif cfg.n_codebooks > 1:
+        logits = torch.einsum("bsd,kdv->bksv", x, p["head"].to(x.dtype))
     else:
         logits = nn.linear(x, p["head"])
     if cfg.vocab_padded != cfg.vocab:   # mask padding rows
@@ -85,28 +118,89 @@ def _head(p, cfg, x):
 def forward(p, cfg, tokens, prefix_embeds=None, positions=None,
             caches=None, cache_pos=None, kv_valid=None,
             head_mode: str = "all"):
-    """Full forward over tokens [B, S]. head_mode: "all" | "last" (only
-    the final position's logits, as prefill) | "none" (the final hidden
-    states). Returns (logits_or_hidden, new_caches, aux_loss)."""
-    _supported(cfg)
-    if prefix_embeds is not None:
-        raise NotImplementedError("prefix embeddings are not ported")
+    """Full forward over tokens [B, S] ([B, K, S]). head_mode: "all" |
+    "last" (only the final position's logits, as prefill) | "none" (the
+    final hidden states). The prefix positions are dropped before the
+    head. Returns (logits_or_hidden, new_caches, aux_loss)."""
     x = _embed(p, cfg, tokens)
-    B, S = x.shape[0], x.shape[1]
+    B = x.shape[0]
+    n_pre = 0
+    if prefix_embeds is not None:
+        pe = prefix_embeds.to(x.dtype)
+        if cfg.embed_scale:
+            pe = pe * _scale(cfg, x.dtype)
+        x = torch.cat([pe, x], dim=1)
+        n_pre = prefix_embeds.shape[1]
+    S = x.shape[1]
     if positions is None:
         base = 0 if cache_pos is None else int(cache_pos)
         positions = base + torch.arange(
             S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    prefix_len = None
+    if cfg.prefix_lm and n_pre:
+        prefix_len = torch.full((B,), n_pre, dtype=torch.int32,
+                                device=x.device)
     x, new_caches, aux = transformer.stack_apply(
-        p["stack"], cfg, x, positions, caches=caches,
+        p["stack"], cfg, x, positions, prefix_len=prefix_len, caches=caches,
         cache_pos=None if cache_pos is None else int(cache_pos),
         kv_valid=kv_valid)
     x = nn.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    if n_pre:
+        x = x[:, n_pre:]
     if head_mode == "none":
         return x, new_caches, aux
     if head_mode == "last":
         x = x[:, -1:]
     return _head(p, cfg, x), new_caches, aux
+
+
+# ---------------------------------------------------------------------------
+# the LM loss
+# ---------------------------------------------------------------------------
+def _ce_from_logits(cfg, logits, labels):
+    """(sum of the token cross entropies in fp32, count of labelled
+    tokens) over logits [..., V] and labels [...]."""
+    logits = logits.float()
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    mask = labels != IGNORE
+    safe = torch.clamp(labels, min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def loss_fn(p, cfg, batch, loss_chunk: int = 1024
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross entropy (+ MoE aux loss) of batch["tokens"]
+    against batch["labels"] (and batch["prefix_embeds"], optional).
+
+    Where S > loss_chunk and is a multiple of it, the head and the CE run
+    in chunks of `loss_chunk` positions, summed in order in fp32, so the
+    full [B, S, V] fp32 logits are never materialised."""
+    labels = batch["labels"]
+    hidden, _, aux = forward(p, cfg, batch["tokens"],
+                             prefix_embeds=batch.get("prefix_embeds"),
+                             head_mode="none")
+    S = hidden.shape[1]
+    if loss_chunk and S > loss_chunk and S % loss_chunk == 0:
+        nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        n_sum = torch.zeros((), dtype=torch.int64, device=hidden.device)
+        for lo in range(0, S, loss_chunk):
+            logits = _head(p, cfg, hidden[:, lo:lo + loss_chunk])
+            nll, n = _ce_from_logits(cfg, logits,
+                                     labels[..., lo:lo + loss_chunk])
+            nll_sum, n_sum = nll_sum + nll, n_sum + n
+            del logits
+    else:
+        nll_sum, n_sum = _ce_from_logits(cfg, _head(p, cfg, hidden), labels)
+    denom = torch.clamp(n_sum, min=1).float()
+    ce = nll_sum / denom
+    total = ce + aux
+    return total, {"loss": total, "ce": ce,
+                   "aux": torch.as_tensor(aux, dtype=torch.float32,
+                                          device=hidden.device),
+                   "ntok": denom}
 
 
 # ---------------------------------------------------------------------------
@@ -118,23 +212,64 @@ def init_caches(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                                         resolve(device))
 
 
+def _at(logits, i: int):
+    """Position i of [B, S, V] or [B, K, S, V] logits."""
+    return logits[:, i] if logits.ndim == 3 else logits[:, :, i]
+
+
 def prefill(p, cfg, tokens, caches, prefix_embeds=None, kv_valid=None):
-    """Prefill from position 0. Returns (last_logits [B, V], caches)."""
+    """Prefill from position 0 (the prefix first, when given). Returns
+    (last_logits [B, V] or [B, K, V], caches)."""
     logits, caches, _ = forward(p, cfg, tokens, prefix_embeds=prefix_embeds,
                                 caches=caches, cache_pos=0,
                                 kv_valid=kv_valid, head_mode="last")
-    return logits[:, 0], caches
+    return _at(logits, 0), caches
 
 
 def decode_step(p, cfg, token, pos: int, caches, kv_valid=None,
                 positions=None):
-    """One decode step. token [B]; pos is the cache offset of the token.
-    Returns (logits [B, V], caches)."""
-    logits, caches, _ = forward(p, cfg, token[:, None], caches=caches,
+    """One decode step. token [B] (or [B, K]); pos is the cache offset of
+    the token. Returns (logits [B, V] or [B, K, V], caches)."""
+    logits, caches, _ = forward(p, cfg, token[..., None], caches=caches,
                                 cache_pos=pos, kv_valid=kv_valid,
                                 positions=positions)
-    return logits[:, 0], caches
+    return _at(logits, 0), caches
 
 
+# ---------------------------------------------------------------------------
+# counts
+# ---------------------------------------------------------------------------
 def param_count(p) -> int:
     return sum(t.numel() for t in p.parameters())
+
+
+def active_param_count(cfg, params) -> int:
+    """Active (per-token) parameter count: embeddings + non-expert weights
+    + top_k/E of the routed experts' weights + shared experts. A routed
+    expert leaf is found as in the reference: named w_gate, w_up or w_down
+    under an "mlp" and not under "shared", with the expert count in its
+    leading dims."""
+    total = param_count(params)
+    if cfg.mlp_type != "moe":
+        return total
+    E = cfg.moe.n_experts
+    e_total = 0
+    for name, leaf in params.named_parameters():
+        keys = name.split(".")
+        if (keys[-1] in ("w_gate", "w_up", "w_down") and "mlp" in keys
+                and "shared" not in keys and leaf.ndim >= 3
+                and E in tuple(leaf.shape[:-2])):
+            e_total += leaf.numel()
+    frac = cfg.moe.top_k / cfg.moe.n_experts
+    return int(total - e_total * (1.0 - frac))
+
+
+def model_flops_per_token(cfg, n_params: Optional[int] = None,
+                          params=None) -> float:
+    """6*N per token for training (forward and backward); N = active
+    params."""
+    if n_params is None:
+        if params is None:
+            raise ValueError("need params")
+        n_params = active_param_count(cfg, params)
+    return 6.0 * n_params

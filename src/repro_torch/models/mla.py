@@ -1,0 +1,154 @@
+"""Multi-head latent attention (DeepSeek-V2 / MiniCPM3), on the JAX
+package's `models/mla.py`.
+
+Q path: an optional low-rank (q_lora) projection; per-head dims split into
+a non-positional part (qk_nope) and a RoPE part (qk_rope).
+KV path: a shared low-rank latent c_kv (kv_lora) is up-projected to K_nope
+and V; a single shared RoPE key k_rope comes straight from x.
+
+The decode cache stores only (c_kv, k_rope), updated in place like the
+port's `KVCache`. `cfg.mla_absorb` attends over the cache in the latent
+space instead (W_uk folded into the query, W_uv into the output). As in
+the reference, MLA runs the plain attention (fp32 scores, additive -inf
+mask) and never calls the flash kernel.
+
+Mixed dtypes promote as in JAX (an fp32 cache under a bf16 model gives an
+fp32 attention output); torch's einsum takes one dtype, so the operands
+are brought to the promoted one first.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.models import modules as nn
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor     # [B, S_max, R]   compressed latent
+    k_rope: torch.Tensor   # [B, S_max, Dr]  shared rope key
+
+    @staticmethod
+    def init(batch, max_len, kv_lora, d_rope, dtype=torch.bfloat16,
+             device=None):
+        return MLACache(
+            torch.zeros((batch, max_len, kv_lora), dtype=dtype,
+                        device=device),
+            torch.zeros((batch, max_len, d_rope), dtype=dtype,
+                        device=device))
+
+
+def mla_init(generator: torch.Generator, cfg):
+    m = cfg.mla
+    d = cfg.d_model
+    h = cfg.n_heads
+    dq = m.qk_nope_head_dim + m.qk_rope_head_dim
+    dev = generator.device
+    p = {}
+    if m.q_lora_rank:
+        p["w_dq"] = nn.dense_init(generator, d, m.q_lora_rank)
+        p["q_norm"] = torch.ones(m.q_lora_rank, device=dev)
+        p["w_uq"] = nn.dense_init(generator, m.q_lora_rank, (h, dq))
+    else:
+        p["w_q"] = nn.dense_init(generator, d, (h, dq))
+    p["w_dkv"] = nn.dense_init(generator, d, m.kv_lora_rank)
+    p["kv_norm"] = torch.ones(m.kv_lora_rank, device=dev)
+    p["w_uk"] = nn.dense_init(generator, m.kv_lora_rank,
+                              (h, m.qk_nope_head_dim))
+    p["w_uv"] = nn.dense_init(generator, m.kv_lora_rank, (h, m.v_head_dim))
+    p["w_kr"] = nn.dense_init(generator, d, m.qk_rope_head_dim)
+    p["wo"] = nn.dense_init(generator, h * m.v_head_dim, d)
+    return p
+
+
+def _mla_q(p, cfg, x, positions):
+    m = cfg.mla
+    if m.q_lora_rank:
+        cq = nn.rms_norm(nn.linear(x, p["w_dq"]), p["q_norm"], cfg.norm_eps)
+        q = nn.linear(cq, p["w_uq"])
+    else:
+        q = nn.linear(x, p["w_q"])                          # [B,S,H,dq]
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = nn.apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                           cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latents(p, cfg, x, positions):
+    c_kv = nn.linear(x, p["w_dkv"])                         # [B,S,R]
+    k_rope = nn.apply_rope(
+        nn.linear(x, p["w_kr"])[:, :, None, :], positions, cfg.rope_theta
+    )[:, :, 0, :]                                           # [B,S,Dr]
+    return c_kv, k_rope
+
+
+def _scores(cfg, s_nope, q_rope, k_rope, q_pos, kv_pos):
+    """fp32 (s_nope + s_rope) * scale, -inf where masked; in place in
+    s_nope (the same values as the reference's additive mask on finite
+    scores, without three more [B, H, Sq, Skv] buffers)."""
+    m = cfg.mla
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    scores = s_nope.add_(torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
+                                      k_rope.float())).mul_(scale)
+    ok = (kv_pos[:, None, :] <= q_pos[:, :, None]) & (kv_pos[:, None, :] >= 0)
+    return scores.masked_fill_(~ok[:, None], float("-inf"))
+
+
+def _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, q_pos, kv_pos):
+    """Attention over (possibly cached) latents."""
+    ckn = nn.rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    k_nope = nn.linear(ckn, p["w_uk"])                      # [B,Skv,H,dn]
+    v = nn.linear(ckn, p["w_uv"])                           # [B,Skv,H,dv]
+    s_nope = torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
+    scores = _scores(cfg, s_nope, q_rope, k_rope, q_pos, kv_pos)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", w, v)
+    B, S, H, Dv = out.shape
+    return nn.linear(out.reshape(B, S, H * Dv), p["wo"])
+
+
+def _mla_attend_absorbed(p, cfg, q_nope, q_rope, c_kv, k_rope, q_pos,
+                         kv_pos):
+    """Weight-absorbed attention in the compressed latent space:
+        score = (W_uk^T q_nope)^T c_kv + q_rope^T k_rope
+        out   = W_uv^T (softmax(score) c_kv)
+    One read of (c_kv, k_rope) a step, no per-step K/V expansion."""
+    ckn = nn.rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)      # [B,Skv,R]
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope,
+                         p["w_uk"].to(q_nope.dtype))         # [B,Sq,H,R]
+    s_nope = torch.einsum("bqhr,bkr->bhqk", q_lat.float(), ckn.float())
+    scores = _scores(cfg, s_nope, q_rope, k_rope, q_pos, kv_pos)
+    w = torch.softmax(scores, dim=-1).to(c_kv.dtype)
+    o_lat = torch.einsum("bhqk,bkr->bqhr", w, ckn)
+    out = torch.einsum("bqhr,rhd->bqhd", o_lat, p["w_uv"].to(o_lat.dtype))
+    B, S, H, Dv = out.shape
+    return nn.linear(out.reshape(B, S, H * Dv), p["wo"])
+
+
+def mla_apply(p, cfg, x, positions, cache: Optional[MLACache] = None,
+              cache_pos: Optional[int] = None, kv_valid=None):
+    """Without a cache: causal attention over x's own latents. With one:
+    writes (c_kv, k_rope) at `cache_pos` in place and attends over the
+    cache; `kv_valid` [B] bounds each row's valid length (default
+    cache_pos + S)."""
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latents(p, cfg, x, positions)
+    if cache is None:
+        return _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope,
+                           positions, positions), None
+    B, S = x.shape[0], x.shape[1]
+    S_max = cache.c_kv.shape[1]
+    cache.c_kv[:, cache_pos:cache_pos + S] = c_kv.to(cache.c_kv.dtype)
+    cache.k_rope[:, cache_pos:cache_pos + S] = k_rope.to(cache.k_rope.dtype)
+    if kv_valid is None:
+        kv_valid = torch.full((B,), cache_pos + S, dtype=torch.int32,
+                              device=x.device)
+    kv_pos = torch.arange(S_max, dtype=torch.int32,
+                          device=x.device)[None].expand(B, S_max)
+    kv_pos = torch.where(kv_pos < kv_valid[:, None], kv_pos, -1)
+    attend = _mla_attend_absorbed if cfg.mla_absorb else _mla_attend
+    y = attend(p, cfg, q_nope, q_rope, cache.c_kv, cache.k_rope, positions,
+               kv_pos)
+    return y, cache

@@ -9,60 +9,65 @@ prologue, which runs BEFORE the groups, exactly as in the reference
 (`stack_layout`): at 38 layers of (rglru, rglru, local) the two trailing
 rglru layers of `pattern_full` run first.
 
-Block kinds: "attn", "local", "rglru" and "ssd" (Mamba-2; its block has
-no MLP and no second norm, and returns after the residual add, as in the
-reference). MLA and MoE blocks raise `NotImplementedError`. Sharding
-constraints and rematerialisation have no counterpart in inference.
+Block kinds: "attn" (GQA, or MLA under `attn_impl="mla"`), "local",
+"rglru" and "ssd" (Mamba-2; its block has no MLP and no second norm, and
+returns after the residual add, as in the reference). Under
+`mlp_type="moe"` the first `moe.first_k_dense` layers take a dense SwiGLU
+of width `d_ff` and the others a MoE MLP, whose aux losses `stack_apply`
+sums in fp32 in layer order. Sharding constraints and rematerialisation
+have no counterpart in inference.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
 
-from repro_torch.models import attention, rglru, ssd
+from repro_torch.models import attention, mla, moe, rglru, ssd
 from repro_torch.models import modules as nn
 
-KINDS = ("attn", "local", "rglru", "ssd")
 
-
-def _supported(cfg, kind: str) -> None:
-    if kind not in KINDS:
-        raise NotImplementedError(f"block kind {kind!r} is not ported")
-    if kind == "attn" and cfg.attn_impl == "mla":
-        raise NotImplementedError(
-            "MLA attention is not ported (ROADMAP queue 1 item 7)")
-    if cfg.mlp_type == "moe":
-        raise NotImplementedError(
-            "MoE MLPs are not ported (ROADMAP queue 1 item 7)")
+def _dense_kind(cfg) -> str:
+    """The dense MLP's kind: a MoE model's dense layers are SwiGLU."""
+    return "swiglu" if cfg.mlp_type == "moe" else cfg.mlp_type
 
 
 # -------------------------- per-block init/apply ---------------------------
 def block_init(generator: torch.Generator, cfg, kind: str, layer_idx: int):
-    _supported(cfg, kind)
     dev = generator.device
     p: Dict[str, Any] = {"ln1": torch.ones(cfg.d_model, device=dev)}
     if kind in ("attn", "local"):
-        p["attn"] = attention.attn_init(generator, cfg)
+        if cfg.attn_impl == "mla" and kind == "attn":
+            p["attn"] = mla.mla_init(generator, cfg)
+        else:
+            p["attn"] = attention.attn_init(generator, cfg)
     elif kind == "rglru":
         p["attn"] = rglru.rglru_init(generator, cfg)
-    else:
+    elif kind == "ssd":
         p["attn"] = ssd.ssd_init(generator, cfg)
         return p                       # the SSD block has no separate MLP
+    else:
+        raise ValueError(kind)
     p["ln2"] = torch.ones(cfg.d_model, device=dev)
-    if cfg.mlp_type != "none":
+    if cfg.mlp_type == "moe" and layer_idx >= cfg.moe.first_k_dense:
+        p["mlp"] = moe.moe_init(generator, cfg)   # has "router": MoE block
+    elif cfg.mlp_type != "none":
         p["mlp"] = nn.mlp_init(generator, cfg.d_model, cfg.d_ff,
-                               cfg.mlp_type)
+                               _dense_kind(cfg))
     return p
 
 
 def block_apply(p, cfg, kind: str, x, positions, prefix_len=None,
                 cache=None, cache_pos=None, kv_valid=None):
-    """One residual block. Returns (x, new_cache, aux_loss); the aux loss
-    is 0.0, since only MoE blocks (not ported) have one."""
-    _supported(cfg, kind)
+    """One residual block. Returns (x, new_cache, aux_loss): the MoE MLP's
+    fp32 aux loss, 0.0 for every other block."""
+    aux = 0.0
     h = nn.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind in ("attn", "local"):
+    if kind == "attn" and cfg.attn_impl == "mla":
+        y, new_cache = mla.mla_apply(p["attn"], cfg, h, positions,
+                                     cache=cache, cache_pos=cache_pos,
+                                     kv_valid=kv_valid)
+    elif kind in ("attn", "local"):
         window = cfg.window if kind == "local" else 0
         y, new_cache = attention.attn_apply(
             p["attn"], cfg, h, positions, prefix_len=prefix_len,
@@ -70,15 +75,20 @@ def block_apply(p, cfg, kind: str, x, positions, prefix_len=None,
             kv_valid=kv_valid)
     elif kind == "rglru":
         y, new_cache = rglru.rglru_apply(p["attn"], cfg, h, state=cache)
-    else:
+    elif kind == "ssd":
         y, new_cache = ssd.ssd_apply(p["attn"], cfg, h, state=cache)
-        return x + y.to(x.dtype), new_cache, 0.0
+        return x + y.to(x.dtype), new_cache, aux
+    else:
+        raise ValueError(kind)
     x = x + y.to(x.dtype)
     if "mlp" in p:
         h2 = nn.rms_norm(x, p["ln2"], cfg.norm_eps)
-        y2 = nn.mlp_apply(p["mlp"], h2, cfg.mlp_type)
+        if "router" in p["mlp"]:
+            y2, aux = moe.moe_apply(p["mlp"], cfg, h2)
+        else:
+            y2 = nn.mlp_apply(p["mlp"], h2, _dense_kind(cfg))
         x = x + y2.to(x.dtype)
-    return x, new_cache, 0.0
+    return x, new_cache, aux
 
 
 # ----------------------------- stack init ----------------------------------
@@ -96,18 +106,34 @@ def stack_layout(cfg) -> Tuple[List[str], List[str], int]:
     return prologue, list(cfg.pattern), n_groups
 
 
+def empty_stack(cfg) -> Dict[str, Any]:
+    """The stack tree with a None for every layer."""
+    prologue, period, n_groups = stack_layout(cfg)
+    return {"prologue": [None] * len(prologue),
+            "groups": [[None] * n_groups for _ in period]}
+
+
+def init_order(cfg, stack) -> Iterator[Tuple[list, int, str, int]]:
+    """Every layer's place in `stack` (an `empty_stack`) in the order
+    `stack_init` draws it: (the list holding it, its index there, kind,
+    layer_idx); the prologue first, then slot by slot, group by group."""
+    prologue, period, n_groups = stack_layout(cfg)
+    for i, kind in enumerate(prologue):
+        yield stack["prologue"], i, kind, i
+    base = len(prologue)
+    for slot, kind in enumerate(period):
+        for g in range(n_groups):
+            yield (stack["groups"][slot], g, kind,
+                   base + g * len(period) + slot)
+
+
 def stack_init(generator: torch.Generator, cfg):
     """{"prologue": [layer tree, ...], "groups": [[layer tree per group]
-    per slot]}, drawn prologue first, then slot by slot."""
-    prologue, period, n_groups = stack_layout(cfg)
-    pro = [block_init(generator, cfg, kind, layer_idx=i)
-           for i, kind in enumerate(prologue)]
-    base = len(prologue)
-    groups = [[block_init(generator, cfg, kind,
-                          layer_idx=base + g * len(period) + slot)
-               for g in range(n_groups)]
-              for slot, kind in enumerate(period)]
-    return {"prologue": pro, "groups": groups}
+    per slot]}, drawn in `init_order`."""
+    stack = empty_stack(cfg)
+    for layers, i, kind, layer_idx in init_order(cfg, stack):
+        layers[i] = block_init(generator, cfg, kind, layer_idx)
+    return stack
 
 
 # ----------------------------- stack apply ---------------------------------
@@ -115,23 +141,29 @@ def stack_apply(params, cfg, x, positions, prefix_len=None,
                 caches=None, cache_pos=None, kv_valid=None):
     """Apply all blocks: the prologue, then the groups in order. `caches`
     is None (scoring) or {"prologue": [cache, ...], "groups": [[cache per
-    group] per slot]}. Returns (x, new_caches, total_aux)."""
+    group] per slot]}. Returns (x, new_caches, total_aux): the MoE aux
+    losses summed in fp32 in the order the layers run (0.0 without MoE;
+    the reference's added zeros change no sum)."""
     prologue, period, n_groups = stack_layout(cfg)
+    aux_total = 0.0
     new_caches: Dict[str, Any] = {"prologue": [],
                                   "groups": [[] for _ in period]}
     for i, kind in enumerate(prologue):
         c = None if caches is None else caches["prologue"][i]
-        x, nc, _ = block_apply(params["prologue"][i], cfg, kind, x,
-                               positions, prefix_len, c, cache_pos, kv_valid)
+        x, nc, aux = block_apply(params["prologue"][i], cfg, kind, x,
+                                 positions, prefix_len, c, cache_pos,
+                                 kv_valid)
         new_caches["prologue"].append(nc)
+        aux_total = aux_total + aux
     for g in range(n_groups):
         for slot, kind in enumerate(period):
             c = None if caches is None else caches["groups"][slot][g]
-            x, nc, _ = block_apply(params["groups"][slot][g], cfg, kind, x,
-                                   positions, prefix_len, c, cache_pos,
-                                   kv_valid)
+            x, nc, aux = block_apply(params["groups"][slot][g], cfg, kind,
+                                     x, positions, prefix_len, c, cache_pos,
+                                     kv_valid)
             new_caches["groups"][slot].append(nc)
-    return x, (new_caches if caches is not None else None), 0.0
+            aux_total = aux_total + aux
+    return x, (new_caches if caches is not None else None), aux_total
 
 
 # ----------------------------- cache init ----------------------------------
@@ -141,7 +173,10 @@ def stack_cache_init(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     prologue, period, n_groups = stack_layout(cfg)
 
     def one(kind):
-        _supported(cfg, kind)
+        if kind == "attn" and cfg.attn_impl == "mla":
+            m = cfg.mla
+            return mla.MLACache.init(batch, max_len, m.kv_lora_rank,
+                                     m.qk_rope_head_dim, dtype, device)
         if kind == "rglru":
             r = cfg.rglru.d_rnn or cfg.d_model
             return rglru.RGLRUState.init(batch, r, cfg.rglru.conv_width,

@@ -287,15 +287,22 @@ def test_registry_and_config_copy():
     assert (cfg.n_layers, cfg.d_model, cfg.vocab) == (38, 4096, 256000)
     with pytest.raises(KeyError):
         configs.get_config("no-such-arch")
-    # MoE blocks are not ported (SSD blocks are: tests/test_torch_mamba.py)
-    moe = dataclasses.replace(cfg, mlp_type="moe",
-                              moe=configs.base.MoEConfig())
-    with pytest.raises(NotImplementedError):
-        transformer.block_init(torch.Generator(), moe, "rglru", 0)
-    # nor MLA attention: the registered MLA configs raise, not run
-    mla = configs.get_config("minicpm3-4b")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        transformer.block_init(torch.Generator(), mla, "attn", 0)
+    # MoE and MLA blocks are built like the others (held to the reference
+    # in tests/test_torch_moe.py, test_torch_mla.py and test_torch_arch.py):
+    # a MoE model's first `first_k_dense` layers take a dense SwiGLU
+    moe = configs.get_smoke_config("deepseek-v2-lite-16b")
+    dense = transformer.block_init(torch.Generator(), moe, "attn", 0)
+    routed = transformer.block_init(torch.Generator(), moe, "attn", 1)
+    assert "router" not in dense["mlp"]
+    assert tuple(dense["mlp"]["w_up"].shape) == (moe.d_model, moe.d_ff)
+    assert tuple(routed["mlp"]["w_up"].shape) == (
+        moe.moe.n_experts, moe.d_model, moe.moe.d_expert)
+    assert "w_uk" in dense["attn"] and "w_q" in dense["attn"]
+    mla = configs.get_smoke_config("minicpm3-4b")
+    assert "w_dq" in transformer.block_init(torch.Generator(), mla, "attn",
+                                            0)["attn"]
+    with pytest.raises(ValueError):
+        transformer.block_init(torch.Generator(), cfg, "conv", 0)
 
 
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
