@@ -58,7 +58,21 @@ paths through them:
     Yi-34B at full depth; Qwen2-72B cut to 32 of 80 layers and DBRX-132B
     to 8 of 40, which one card cannot hold whole): scoring 4096 tokens
     and its loss, serving 2 prompts of 1024 with 8 greedy steps, served
-    against scored, flash launches counted per attention layer.
+    against scored, flash launches counted per attention layer;
+  * training on the card (phase 13): the trainer's failure-recovery run
+    (a 2-layer Phi-3 smoke model, fp32, 40 steps, a checkpoint every
+    10, a failure at 25) on the card and on the CPU from the same
+    weights, losses held step by step; one step each of microbatching,
+    int8 gradient compression and bf16 parameter casts, card against
+    CPU; and Mamba-2 780M trained at full width and depth (4 x 2048
+    tokens a step, fp32 AdamW, remat), a checkpoint at step 10, a
+    failure at 15, the restore and the replayed steps held to the first
+    run bit for bit (1e-6), then its held-out loss and logits through
+    the SSD kernel held to the training route's, and the kernel's
+    outputs in two of its layers held to the plain version on the same
+    inputs, where the planted faults must fail. Training takes the plain
+    forms and launches no kernel (asserted); the held-out loss and
+    logits launch the SSD kernel 48 times each.
 
 Phase 2 also builds three planted faults of the bf16 SSD kernel and
 three of the RG-LRU scan's TMA ring (copies of their sources with one
@@ -69,7 +83,9 @@ serialise and the bf16 SSD kernel spills nothing. Phase 3 holds the
 decision kernels (the fixed and the generic search, the fused push rows)
 to their plain versions bit for bit, and the three LM wrappers, on
 widths and dtypes the models do not make (flash with Dv != Dh, the scans
-with mixed dtypes), to theirs. Phase 3 also times
+with mixed dtypes), to theirs, and checks that each of the three refuses
+a CUDA input that requires grad (none has a backward) and launches as
+before under `inference_mode`. Phase 3 also times
 flash attention beside PyTorch's SDPA (the same band mask) and fails
 unless the kernel is the faster; it holds the RG-LRU scan bit for bit to
 its plain version on both routes (the TMA ring and, for inputs TMA
@@ -93,6 +109,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import shutil
 import subprocess
 import sys
 import time
@@ -1666,7 +1684,9 @@ CAMPAIGN_DIR = ROOT / "build" / "repro_torch" / "campaign"
 CAMP_MIXES = range(10)          # 10 mixes x 14 rates at 20 frames
 CAMP_FRAMES = 20
 CAMP_BATCH = 32                 # -> 5 chunks of 32 (the last padded)
-WATCHDOG_S = 3.0                # above a small chunk's time; the hold over
+# well above a small chunk's time: the retry runs under it too, and a held
+# attempt has one more WATCHDOG_S, after its flag is set, to reach its poll
+WATCHDOG_S = 10.0
 
 
 def _same(a, b, tag: str) -> None:
@@ -1844,22 +1864,30 @@ def phase_campaign(trees: dict, sections: dict) -> dict:
         f"bit-equal")
 
     # the watchdog on the card: the first attempt is held in its graph
-    # capture past the limit; the stop flag ends it at its next poll, the
-    # worker is joined, the retry captures anew
-    stopped = {"n": 0}
+    # capture until the watchdog sets its stop flag; the flag ends it at
+    # its next poll, the worker is joined, the retry captures anew. The
+    # hold ends when the flag is set, not after a fixed sleep, so the
+    # capture that follows it has the whole of the join's WATCHDOG_S
+    stopped = {"n": 0, "flag": [], "after_flag_s": None}
     real_on = sim._simulate_on
 
     def held_block(*a, **kw):
         if torch.cuda.is_current_stream_capturing() and not hit["held"]:
             hit["held"] += 1
-            time.sleep(WATCHDOG_S + 1.0)
+            if not stopped["flag"][-1].wait(2 * WATCHDOG_S):
+                raise AssertionError("5d watchdog: no stop flag was set "
+                                     f"within {2 * WATCHDOG_S}s")
+            stopped["at"] = time.perf_counter()
         return real_block(*a, **kw)
 
     def counting(*a, **kw):
+        # `_simulate_on`'s last argument is the watchdog's stop flag
+        stopped["flag"].append(kw["stop"] if "stop" in kw else a[-1])
         try:
             return real_on(*a, **kw)
         except sim.Stopped:
             stopped["n"] += 1
+            stopped["after_flag_s"] = time.perf_counter() - stopped["at"]
             raise
 
     sim._block, sim._simulate_on = held_block, counting
@@ -1875,9 +1903,10 @@ def phase_campaign(trees: dict, sections: dict) -> dict:
         raise AssertionError(f"5d watchdog: {hit} {stopped} {st}")
     _same(small_ref, out.result, "5d after a watchdog trip")
     log(f"[5d campaign] watchdog {WATCHDOG_S}s tripped during a graph "
-        f"capture: stopped at the next poll, joined, retried without a "
-        f"capture error; results bit-equal "
-        f"({time.perf_counter() - t0:.1f}s)")
+        f"capture: stopped at the next poll "
+        f"{stopped['after_flag_s']:.3f}s after the flag (of the join's "
+        f"{WATCHDOG_S}s), joined, retried without a capture error; results "
+        f"bit-equal ({time.perf_counter() - t0:.1f}s)")
 
     # the split: one card named twice, and two cards when there are two
     n_cards = torch.cuda.device_count()
@@ -2599,6 +2628,391 @@ def phase_configs() -> dict:
     return {"launches": launches, "outs": outs}
 
 
+# ---------------------------------------------------------------------------
+# phase 3 (also): the LM kernels refuse inputs that require grad
+# ---------------------------------------------------------------------------
+def phase_grad_refusal() -> None:
+    """Each of the three LM wrappers raises on a CUDA input that requires
+    grad while autograd records (none has a backward), and launches as
+    before under `inference_mode` on the same tensors' values."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.rg_lru import kernel as rg
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    g = torch.Generator(device="cuda").manual_seed(400)
+
+    def rand(*shape, lo=None):
+        t = torch.rand(shape, generator=g, device="cuda")
+        return -t if lo == "neg" else t
+
+    q = rand(1, 256, 4, 64).to(torch.bfloat16)
+    a, b = rand(1, 256, 512), rand(1, 256, 512)
+    x, dt, A = rand(1, 256, 4, 64), rand(1, 256, 4), rand(4, lo="neg")
+    Bg = rand(1, 256, 1, 128)
+    calls = (("flash_attention", fa.LAUNCHES,
+              lambda w: fa.flash_attention_fwd(w, q, q), q),
+             ("rg_lru", rg.LAUNCHES, lambda w: rg.rg_lru_fwd(w, b), a),
+             ("ssd_scan", ssd.LAUNCHES,
+              lambda w: ssd.ssd_fwd(w, dt, A, Bg, Bg, chunk=128), x))
+    for name, counts, call, t in calls:
+        leaf = t.clone().requires_grad_(True)
+        before = dict(counts)
+        try:
+            call(leaf)
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name}: a CUDA input that requires grad "
+                                 "was taken")
+        if dict(counts) != before:
+            raise AssertionError(f"{name}: launched on an input that "
+                                 "requires grad")
+        with torch.inference_mode():
+            out = call(leaf)
+        torch.cuda.synchronize()
+        first = out[0] if isinstance(out, tuple) else out
+        if sum(counts.values()) != sum(before.values()) + 1 \
+                or not bool(torch.isfinite(first).all()):
+            raise AssertionError(f"{name}: no finite launch under "
+                                 "inference_mode")
+        log(f"[3 kernels] {name}: refuses a CUDA input that requires grad "
+            "(RuntimeError, no launch); launches once under inference_mode")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: training on one card
+# ---------------------------------------------------------------------------
+TRAIN_DIR = ROOT / "build" / "repro_torch" / "train"
+# (a) fp32 trainer, card against CPU: GEMMs summed in another order, which
+# Adam carries on; the CPU port against the JAX trainer differs by at most
+# 1.4e-6 a step over the same 45 steps (tests/test_torch_trainer.py's
+# shape, on the CPU)
+TOL_TRAIN_CROSS = 1e-4
+# (b) one step of each option, card against CPU: the loss (same weights)
+# and the gradient norm; the parameters as tests/test_torch_train_step.py
+# holds them against JAX (within 2 lr, all but 0.5% within 1% of lr +
+# 1e-6 of the leaf's max)
+TOL_STEP_LOSS = 1e-5
+TOL_STEP_GNORM = 1e-4
+# (c) Mamba-2 780M: the replayed steps start from the restored state (bit
+# for bit) on the same batches, and every reading on the card was
+# bit-equal; 1e-6 leaves about 10 ULP of the loss. A restore that zeroes
+# AdamW's moments moves a small model's replayed losses by 2.9e-4, one
+# that resets its step count by 3.9e-3 (tests/test_torch_trainer.py::
+# test_replay_check_rejects_a_faulty_restore)
+TOL_REPLAY = 1e-6
+# (c) the held-out logits, the SSD kernel's route against the training
+# route (both bf16 compute), relative RMS over every logit, at most this
+# share of the control: the training route in bf16 against fp32 on the
+# same weights (how far bf16 alone moves them)
+LOGITS_OF_ROUNDING = 1.0
+# (c) the SSD kernel inside the trained model: layers 0 and 47 of the
+# held-out loss, the kernel's outputs against the plain version on the
+# same inputs, and the planted faults on them, rejected. y within
+# TOL_SSD_TRAIN of max |y| (the kernel read 3.7e-4 and 1.6e-3 here, the
+# training route's bf16 `ssd_chunked` 5.9e-3 and 3.2e-3; the smallest
+# planted fault 2.83e-2, chunk 3's state zeroed in layer 0, which
+# TOL_SSD's 3e-2 passes), h_last within TOL_SSD["float32"]
+SSD_TRAIN_CASE = (4, 2048, 48, 64, 128, 128, 1, "bfloat16")
+SSD_TRAIN_LAYERS = (0, 47)
+TOL_SSD_TRAIN = 1e-2
+MAMBA_TRAIN = dict(batch=4, seq=2048, steps=18, ckpt_every=10, fail_at=15,
+                   keep_ckpts=1, lr=1e-3)
+MAMBA_TRAIN_LAUNCHES = {"flash_attention": 0, "rg_lru": 0,
+                        "rg_lru_generic": 0, "ssd_scan": 0}
+
+
+def _phi3_train_cfg():
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_smoke_config(
+        "phi3-mini-3.8b", n_layers=2, d_model=64, vocab=128),
+        dtype="float32")
+
+
+def _train_cross() -> dict:
+    """(a) tests/test_trainer_failure_recovery's run on the card and on
+    the CPU from the same weights on the same batches."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train import trainer as tr
+    cfg = _phi3_train_cfg()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        d = TRAIN_DIR / f"cross_{dev}"
+        shutil.rmtree(d, ignore_errors=True)
+        t = tr.Trainer(tr.TrainerConfig(total_steps=40, ckpt_every=10,
+                                        ckpt_dir=str(d), log_every=100),
+                       cfg, optim.AdamWConfig(lr_peak=5e-3, warmup_steps=5,
+                                              total_steps=40),
+                       SyntheticLM(vocab=128, batch=4, seq_len=32),
+                       device=dev)
+        t.inject_failure_at = 25
+        out = t.fit()
+        shutil.rmtree(d, ignore_errors=True)
+        if out["restarts"] != 1 or out["step"] != 40:
+            raise AssertionError(f"trainer on {dev}: restarts "
+                                 f"{out['restarts']}, step {out['step']}")
+        runs[dev] = [m["loss"] for m in out["metrics"]]
+    card, cpu = runs["cuda"], runs["cpu"]
+    if len(card) != len(cpu):
+        raise AssertionError(f"{len(card)} card steps, {len(cpu)} CPU")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    if not rel <= TOL_TRAIN_CROSS or not card[-1] < card[0]:
+        raise AssertionError(f"card vs CPU losses rel {rel}, first "
+                             f"{card[0]}, last {card[-1]}")
+    return {"steps": len(card), "rel": rel, "first": card[0],
+            "last": card[-1]}
+
+
+def _train_options() -> dict:
+    """(b) one step of microbatch=4, int8 and cast_params, card against
+    CPU from the same weights on the same batch."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train import train_step as ts
+    cfg = _phi3_train_cfg()
+    ocfg = optim.AdamWConfig(lr_peak=5e-3, warmup_steps=1, total_steps=10)
+    batch = next(SyntheticLM(vocab=128, batch=8, seq_len=32, seed=7))
+    out = {}
+    for name, kw in (("microbatch=4", dict(microbatch=4)),
+                     ("int8", dict(grad_compression="int8")),
+                     ("cast_params=bfloat16",
+                      dict(cast_params="bfloat16"))):
+        step = ts.make_train_step(cfg, ocfg, **kw)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            p = lm.lm_init(cfg, torch.Generator().manual_seed(3),
+                           device="cpu").to(dev).requires_grad_(True)
+            p, _, m = step(p, optim.adamw_init(p), ts.to_device(batch, dev))
+            res[dev] = (dict((k, t.detach().cpu()) for k, t in
+                             p.named_parameters()),
+                        float(m["loss"]), float(m["grad_norm"]),
+                        float(m["lr"]))
+        (pc, lc, gc, lr), (pp, lp, gp, _) = res["cuda"], res["cpu"]
+        moved = n = 0
+        for k, want in pp.items():
+            d = (pc[k] - want).abs()
+            near = 1e-6 * float(want.abs().max())
+            moved += int((d > 1e-2 * lr + near).sum())
+            n += d.numel()
+            if float(d.max()) > 2 * lr + near:
+                raise AssertionError(f"{name} {k}: off by {float(d.max())}")
+        if abs(lc - lp) > TOL_STEP_LOSS or abs(gc - gp) > TOL_STEP_GNORM * gp \
+                or moved > 5e-3 * n:
+            raise AssertionError(f"{name}: loss {lc} vs {lp}, grad norm "
+                                 f"{gc} vs {gp}, {moved} of {n} moved")
+        out[name] = {"loss": lc, "loss_cpu": lp, "grad_norm": gc,
+                     "grad_norm_cpu": gp, "moved": moved, "n": n}
+    return out
+
+
+@contextlib.contextmanager
+def _capture_ssd(calls: tuple, into: dict):
+    """`ssd_ops.ssd`'s inputs and outputs at the given call indices (0:
+    the first call), kept in `into`; each call goes through unchanged."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    real, n = ssd_ops.ssd, [0]
+
+    def ssd(*args, **kw):
+        out = real(*args, **kw)
+        if n[0] in calls:
+            into[n[0]] = (args, kw["chunk"], out)
+        n[0] += 1
+        return out
+    ssd_ops.ssd = ssd
+    try:
+        yield
+    finally:
+        ssd_ops.ssd = real
+
+
+def _ssd_train_passes(errs) -> bool:
+    return errs[0] <= TOL_SSD_TRAIN and errs[1] <= TOL_SSD["float32"]
+
+
+def _ssd_in_model(caught: dict, fault_libs) -> dict:
+    """The SSD kernel's outputs in the trained model against the plain
+    version on the same inputs, the training route's `ssd_chunked` beside
+    them, and the planted faults on the same inputs."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models.ssd import ssd_chunked
+    case = SSD_TRAIN_CASE
+    out = {}
+    with torch.inference_mode():
+        for layer, ((x, dt, A, Bg, Cg), chunk, got) in sorted(caught.items()):
+            if tuple(x.shape) != case[:4] or chunk != case[5] \
+                    or tuple(Bg.shape) != (*case[:2], case[6], case[4]):
+                raise AssertionError(f"SSD layer {layer}: x {tuple(x.shape)}"
+                                     f", B {tuple(Bg.shape)}, chunk {chunk}")
+            args = (x.contiguous(), dt.float().contiguous(),
+                    A.float().contiguous(), Bg.contiguous(), Cg.contiguous())
+            want = ssd_ops.ssd_plain(*args)
+            row = {"kernel": _ssd_errors(got, want, case),
+                   "train_route": _ssd_errors(
+                       ssd_chunked(*args, chunk=chunk), want, case),
+                   "faults": {}}
+            for (name, _), lib in zip(SSD_FAULTS, fault_libs):
+                row["faults"][name] = _ssd_errors(
+                    _ssd_launch(lib, *args, chunk), want, case)
+            torch.cuda.synchronize()
+            out[layer] = row
+    return out
+
+
+def phase_train(smi: str, fault_libs) -> dict:
+    """Training on the card: (a) the trainer's failure-recovery run, card
+    against CPU; (b) one step of each option against the CPU; (c) Mamba-2
+    780M at full width and depth, 4 x 2048 tokens a step, a checkpoint at
+    step 10, a failure injected at 15, the restore and the replayed steps,
+    then a held-out loss and logits through the SSD kernel against the
+    training route, and the kernel's outputs in two layers against the
+    plain version, with the planted faults (`fault_libs`) rejected at that
+    shape. The launch counts are reset before each part: training reaches
+    no kernel; the held-out scoring launches the SSD kernel 48 times a
+    call, twice (the loss and the logits)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.bench import lm_train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    _reset_lm_launches()
+    cross = _train_cross()
+    opts = _train_options()
+    torch.cuda.synchronize()
+    if _lm_launches() != MAMBA_TRAIN_LAUNCHES:
+        raise AssertionError(f"training launched {_lm_launches()}")
+    log(f"[13 train] (a) phi3-mini smoke (2 layers, d 64, vocab 128), "
+        f"fp32, 4 x 32 tokens, 40 steps, checkpoint every 10, failure at 25:"
+        f" card and CPU restart once and end at step 40; {cross['steps']} "
+        f"losses card vs CPU rel max {cross['rel']:.3e} (tol "
+        f"{TOL_TRAIN_CROSS}), loss {cross['first']:.4f} -> "
+        f"{cross['last']:.4f}")
+    for name, o in opts.items():
+        log(f"[13 train] (b) one step {name} card vs CPU: loss "
+            f"{o['loss']:.6f} vs {o['loss_cpu']:.6f}, grad norm "
+            f"{o['grad_norm']:.6f} vs {o['grad_norm_cpu']:.6f}, "
+            f"{o['moved']} of {o['n']} parameters moved apart")
+    log(f"[13 train] (a)+(b) kernel launches {_lm_launches()} (the "
+        f"training route takes the plain forms) "
+        f"({time.perf_counter() - t0:.1f}s)")
+
+    t1 = time.perf_counter()
+    cfg = configs.get_config("mamba2-780m")
+    ckpt_dir = TRAIN_DIR / "mamba"
+    _reset_lm_launches()
+    caught: dict = {}
+    with _capture_ssd(SSD_TRAIN_LAYERS, caught):
+        out = lm_train.run(device="cuda", cfg=cfg, ckpt_dir=str(ckpt_dir),
+                           **MAMBA_TRAIN)
+    torch.cuda.synchronize()
+    launches = _lm_launches()
+    in_model = _ssd_in_model(caught, fault_libs)
+    if ckpt_dir.exists():
+        raise AssertionError(f"{ckpt_dir} left behind")
+    steps = MAMBA_TRAIN["steps"]
+    losses = [x for _, x in out["losses"]]
+    replay_rel = max(abs(b - a) / abs(a) for _, a, b in out["replayed"])
+    log(f"[13 train] (c) {out['arch']} {out['n_layers']} layers, d_model "
+        f"{out['d_model']}, vocab {out['vocab']}, {out['params']:,} params "
+        f"(fp32 at rest, AdamW moments fp32, {out['dtype']} compute, remat "
+        f"{out['remat']}), {out['batch']} x {out['seq']} tokens a step, "
+        f"{steps} steps in {out['fit_s']:.1f}s with the checkpoints, the "
+        f"failure and the restore | {smi}")
+    log(f"[13 train] (c) step {out['step_s_median']:.3f}s median (min "
+        f"{out['step_s_min']:.3f}s), {out['tok_per_s']:.0f} tok/s, peak "
+        f"memory {out['peak_mem_bytes'] / 2**30:.2f} GiB | {smi}")
+    log(f"[13 train] (c) the whole window: {len(out['losses'])} steps run "
+        f"({steps} that count) in {out['fit_s']:.2f}s, "
+        f"{out['tok_per_s_window']:.0f} tok/s run, "
+        f"{out['goodput_tok_per_s']:.0f} tok/s that count; the failure "
+        f"cost {out['failure_cost_s']:.2f}s (the restore and "
+        f"{len(out['replayed'])} replayed steps) | {smi}")
+    for sv in out["saves"]:
+        log(f"[13 train] (c) checkpoint at step {sv['step']}: "
+            f"{sv['bytes'] / 1e9:.3f} GB, snapshot to host "
+            f"{sv['snapshot_s']:.2f}s, write {sv['write_s']:.2f}s "
+            f"({sv['bytes'] / 1e9 / sv['write_s']:.2f} GB/s) | {smi}")
+    for rs in out["restores"]:
+        log(f"[13 train] (c) restore of step {rs['step']}: "
+            f"{rs['seconds']:.2f}s | {smi}")
+    log(f"[13 train] (c) loss curve "
+        + ", ".join(f"{s}:{x:.4f}" for s, x in out["losses"]))
+    log(f"[13 train] (c) replayed steps after the restore against the first"
+        f" run: " + ", ".join(f"{s}: {a:.6f} / {b:.6f}"
+                              for s, a, b in out["replayed"])
+        + f"; rel max {replay_rel:.3e} (tol {TOL_REPLAY})")
+    log(f"[13 train] (c) held-out loss, {out['batch']} x {out['seq']}: SSD "
+        f"kernel route {out['heldout_loss_kernels']:.6f}, training route "
+        f"{out['heldout_loss_train_route']:.6f}, rel "
+        f"{out['heldout_rel']:.3e} (tol {TOL_SSD['bfloat16']}); launches "
+        f"training {out['train_launches']}, held-out "
+        f"{out['heldout_launches']}, held-out on the training route "
+        f"{out['heldout_train_route_launches']} "
+        f"({time.perf_counter() - t1:.1f}s)")
+    logits_lim = LOGITS_OF_ROUNDING * out["heldout_logits_rel_fp32"]
+    log(f"[13 train] (c) held-out logits, relative RMS: SSD kernel route "
+        f"against the training route {out['heldout_logits_rel']:.3e} "
+        f"(limit {logits_lim:.3e}: {LOGITS_OF_ROUNDING} x the control, the "
+        f"training route in bf16 against fp32, "
+        f"{out['heldout_logits_rel_fp32']:.3e})")
+    for layer, row in in_model.items():
+        log(f"[13 train] (c) SSD kernel in layer {layer} at "
+            f"{SSD_TRAIN_CASE}: error y {row['kernel'][0]:.3e}, h_last "
+            f"{row['kernel'][1]:.3e} (limits {TOL_SSD_TRAIN}, "
+            f"{TOL_SSD['float32']}); the training route's ssd_chunked y "
+            f"{row['train_route'][0]:.3e}, h_last {row['train_route'][1]:.3e}"
+            "; planted faults " + ", ".join(
+                f"'{n}' y {e[0]:.3e} h_last {e[1]:.3e}"
+                for n, e in row["faults"].items()))
+    want_held = dict(MAMBA_TRAIN_LAUNCHES, ssd_scan=2 * cfg.n_layers)
+    if out["params"] != MAMBA_PARAMS or out["restarts"] != 1 \
+            or out["final_step"] != steps \
+            or [s for s, _, _ in out["replayed"]] != list(
+                range(MAMBA_TRAIN["ckpt_every"] + 1,
+                      MAMBA_TRAIN["fail_at"] + 1)):
+        raise AssertionError(f"mamba training: {out['params']} params, "
+                             f"{out['restarts']} restarts, step "
+                             f"{out['final_step']}, replayed "
+                             f"{out['replayed']}")
+    if out["train_launches"] != MAMBA_TRAIN_LAUNCHES \
+            or out["heldout_train_route_launches"] != MAMBA_TRAIN_LAUNCHES \
+            or out["heldout_launches"] != want_held \
+            or launches != want_held:
+        raise AssertionError(f"launches: training {out['train_launches']}, "
+                             f"held-out {out['heldout_launches']}, in all "
+                             f"{launches}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"mamba losses {losses}")
+    if not replay_rel <= TOL_REPLAY:
+        raise AssertionError(f"replayed losses off by {replay_rel}")
+    if not out["heldout_rel"] <= TOL_SSD["bfloat16"]:
+        raise AssertionError(f"held-out loss kernel vs training route "
+                             f"{out['heldout_rel']}")
+    if not out["heldout_logits_rel"] <= logits_lim:
+        raise AssertionError(f"held-out logits kernel vs training route "
+                             f"{out['heldout_logits_rel']} > {logits_lim}")
+    if sorted(in_model) != list(SSD_TRAIN_LAYERS):
+        raise AssertionError(f"SSD calls caught: {sorted(in_model)}")
+    for layer, row in in_model.items():
+        if not _ssd_train_passes(row["kernel"]):
+            raise AssertionError(f"SSD kernel in layer {layer}: "
+                                 f"{row['kernel']}")
+        for name, errs in row["faults"].items():
+            if _ssd_train_passes(errs):
+                raise AssertionError(f"SSD in layer {layer}: the checks pass"
+                                     f" the planted fault '{name}' ({errs})")
+    torch.cuda.empty_cache()
+    log(f"[13 train] done ({time.perf_counter() - t0:.1f}s)")
+    return {"launches": launches, "cross": cross, "options": opts,
+            "mamba": out, "ssd_in_model": in_model}
+
+
 ETF_SRC = "src/repro_torch/kernels/etf_ft/csrc/etf_ft.cu"
 KERNELS = (  # name, source, TPU kernel replaced, path
     ("etf_ft_search_masked", ETF_SRC,
@@ -2619,11 +3033,12 @@ KERNELS = (  # name, source, TPU kernel replaced, path
 
 def main() -> int:
     import torch
-    phase_device()
+    smi = phase_device()
     built = phase_build()
     kern = phase_kernels()
     lm_kern = phase_lm_kernels(built["rg_faults"])
     ssd_kern = phase_ssd_kernels(built["ssd_faults"])
+    phase_grad_refusal()
     das_path = phase_main()
     phase_cross(das_path["out"]["trees"])
     fault_path = phase_faults(das_path["out"]["trees"])
@@ -2636,6 +3051,7 @@ def main() -> int:
     ds_path = phase_deepseek()
     phase_deepseek_cross()
     cfg_path = phase_configs()
+    train_path = phase_train(smi, built["ssd_faults"])
     checked = {"das": kern, "lm": lm_kern, "mamba": ssd_kern}
     # the DAS kernels' launches over its four paths: summary40 (phase
     # 4), the fault path (5b), the benchmark's sections (5c) and the
@@ -2647,8 +3063,13 @@ def main() -> int:
     # GQA configs of phase 12; DeepSeek (phase 10) launches none
     lm_launches = {k: lm_path["launches"][k] + ds_path["launches"][k]
                    + cfg_path["launches"][k] for k in lm_path["launches"]}
+    # the SSD kernel over its two paths: Mamba-2 serving (phase 8) and the
+    # trained Mamba-2's held-out loss and logits (phase 13)
+    mamba_launches = {k: mamba_path["launches"][k]
+                      + train_path["launches"][k]
+                      for k in mamba_path["launches"]}
     launched = {"das": das_launches, "lm": lm_launches,
-                "mamba": mamba_path["launches"]}
+                "mamba": mamba_launches}
     rows = []
     for name, source, replaces, path in KERNELS:
         t = checked[path]["timing"][name]

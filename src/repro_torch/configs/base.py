@@ -1,8 +1,10 @@
 """Model configuration, a copy of the JAX package's `configs/base.py`.
 
-The fields are the reference's, less its training, sharding and kernel
-knobs (`remat`, `scan_layers`, `shard_strategy`, `use_pallas`): the port
-picks a kernel by the device of the tensors, not by a flag.
+The fields are the reference's, less its sharding and kernel knobs
+(`scan_layers`, `shard_strategy`, `use_pallas`): the port picks a kernel
+by the device of the tensors and by whether autograd records, not by a
+flag. `remat` is the reference's: the blocks a training step
+recomputes in its backward (`models/transformer.py`).
 """
 from __future__ import annotations
 
@@ -92,6 +94,8 @@ class ModelConfig:
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"       # compute dtype
     param_dtype: str = "float32"
+    # training
+    remat: str = "full"           # none | full | dots
     # decode-path optimization: MLA weight absorption (attention runs in the
     # compressed latent space; no per-step K/V expansion) — §Perf iteration.
     mla_absorb: bool = False

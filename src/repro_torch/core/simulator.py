@@ -84,7 +84,9 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import gc
 import os
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -1248,6 +1250,33 @@ def _block(ctx: _Ctx, mode: int, p: SimParams, s: SimState,
     return s, it
 
 
+_GC_LOCK = threading.Lock()
+_GC_HOLDS = [0, False]      # captures under way; the collector was enabled
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """Keep Python's cyclic collector off while any thread captures.
+
+    A failed or stopped attempt's graph can outlive it in a reference
+    cycle (its frames, held by the exception that ended it). A collection
+    that destroys such a graph inside another capture invalidates that
+    capture, so no collection runs until the last capture under way has
+    ended; the cycles are collected afterwards, as usual."""
+    with _GC_LOCK:
+        if _GC_HOLDS[0] == 0:
+            _GC_HOLDS[1] = gc.isenabled()
+            gc.disable()
+        _GC_HOLDS[0] += 1
+    try:
+        yield
+    finally:
+        with _GC_LOCK:
+            _GC_HOLDS[0] -= 1
+            if _GC_HOLDS[0] == 0 and _GC_HOLDS[1]:
+                gc.enable()
+
+
 def _capture(block, s: SimState, it: torch.Tensor):
     """Record `block(s, it)` in one CUDA graph whose result is copied back
     into `s` and `it`, which become the graph's static buffers (the flat
@@ -1261,13 +1290,15 @@ def _capture(block, s: SimState, it: torch.Tensor):
     thread's calls (`thread_local`), so a capture on another card, in
     another thread, does not break it. A capture that fails raises, its
     graph is dropped and `LAUNCHES` is left as it was found; nothing falls
-    back to eager."""
+    back to eager. No cyclic collection runs during the capture
+    (`_gc_paused`)."""
     counts = _kops.LAUNCHES
     before = dict(counts)
     g = torch.cuda.CUDAGraph()
     try:
-        with torch.cuda.graph(g, stream=torch.cuda.current_stream(),
-                              capture_error_mode="thread_local"):
+        with _gc_paused(), torch.cuda.graph(
+                g, stream=torch.cuda.current_stream(),
+                capture_error_mode="thread_local"):
             out, out_it = block(s, it)
             for buf, new in zip(s, out):
                 if new is not buf:

@@ -109,6 +109,29 @@ class Library:
         return self._cdll
 
 
+def records_grad(*ts) -> bool:
+    """True while autograd records through any of `ts`: grad mode is on
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def refuse_grad(kernel: str, *ts) -> None:
+    """Raise while autograd records through any of `ts`.
+
+    The kernels are forward only, as the reference's Pallas kernels are
+    (no `custom_vjp`): an output allocated here and written through ctypes
+    would carry no `grad_fn`, and every gradient upstream of it would be
+    lost without a word. The models take the plain forms while autograd
+    records (`records_grad`), so a training step never reaches a kernel.
+    Called before `check`, so it also holds for CPU tensors."""
+    if records_grad(*ts):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad, and the kernel has no "
+            "backward (nor has the reference's Pallas kernel): train "
+            "through the plain forms, or call it under torch.no_grad() or "
+            "torch.inference_mode()")
+
+
 def check(name: str, t: torch.Tensor, dtype, shape: tuple,
           device: torch.device) -> None:
     """Raise unless `t` is a contiguous CUDA tensor on `device` of the

@@ -8,7 +8,9 @@ register and spill lines the build log keeps). The wrapper checks
 device, dtype, shape and contiguity,
 allocates the output with `torch.empty`, launches on the current stream,
 raises on a nonzero `cudaGetLastError()`, and adds one to
-`LAUNCHES["flash_attention"]`. Nothing here runs on the CPU; `ops.py`
+`LAUNCHES["flash_attention"]`. It records nothing for autograd, so it
+raises first on an input that requires grad while autograd records
+(`_build.refuse_grad`). Nothing here runs on the CPU; `ops.py`
 routes CPU tensors to the plain version in `ref.py`.
 """
 from __future__ import annotations
@@ -66,6 +68,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0, softcap=0.0):
     the tensor cores, fp32 on the CUDA cores. When Dv differs from Dh the
     narrower operands are padded to the wider width (`common_width`) and
     the output is sliced back to Dv."""
+    _build.refuse_grad("flash_attention", q, k, v)
     B, S, H, Dh = q.shape
     K, Dv = k.shape[2], v.shape[3]
     dev = q.device

@@ -7,7 +7,9 @@ route with `route`, allocates the output with `torch.empty`, launches on
 the current stream and raises on a nonzero `cudaGetLastError()`. The TMA
 ring kernel counts under `LAUNCHES["rg_lru"]`, the generic kernel (inputs
 TMA cannot take) under `LAUNCHES["rg_lru_generic"]`, so a path that
-leaves the ring shows in the counts. Nothing here runs on the CPU;
+leaves the ring shows in the counts. It records nothing for autograd,
+so it raises first on an input that requires grad while autograd
+records (`_build.refuse_grad`). Nothing here runs on the CPU;
 `ops.py` routes CPU tensors to the plain version in `ref.py`.
 """
 from __future__ import annotations
@@ -61,6 +63,7 @@ def rg_lru_fwd(a, b):
     dtype, h_t = a_t h_{t-1} + b_t from h = 0 in fp32, bit-equal to
     `ref.rg_lru_reference`. When a and b differ in dtype both are taken
     to fp32 (as the reference casts each) and h is rounded to a's dtype."""
+    _build.refuse_grad("rg_lru", a, b)
     B, S, C = a.shape
     dev = a.device
     dts = (torch.float32, torch.bfloat16)

@@ -7,7 +7,9 @@ with `-Xptxas -v`, whose register and spill lines the build log keeps).
 The wrapper checks device, dtype, shape and contiguity,
 allocates the outputs with `torch.empty`, launches on the current
 stream, raises on a nonzero `cudaGetLastError()`, and adds one to
-`LAUNCHES["ssd_scan"]`. Unlike the TPU kernel it takes B and C per group,
+`LAUNCHES["ssd_scan"]`. It records nothing for autograd, so it raises
+first on an input that requires grad while autograd records
+(`_build.refuse_grad`). Unlike the TPU kernel it takes B and C per group,
 [B, S, G, N], and never expands them to heads. Nothing here runs on the
 CPU; `ops.py` routes CPU tensors to the plain version in `ref.py`.
 """
@@ -58,6 +60,7 @@ def ssd_fwd(x, dt, A, Bg, Cg, *, chunk=128):
     divides S, N <= 128. Returns (y [B,S,H,P] in x's dtype, h_last
     [B,H,N,P] fp32), as `ref.ssd_reference` with B and C repeated to
     heads. bf16 runs on the tensor cores, fp32 on the CUDA cores."""
+    _build.refuse_grad("ssd_scan", x, dt, A, Bg, Cg)
     B, S, H, P = x.shape
     G, N = Bg.shape[2], Bg.shape[3]
     dev = x.device

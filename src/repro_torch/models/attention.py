@@ -7,7 +7,9 @@ Without a prefix, attention over a fresh sequence goes to
 plain version, or `banded_sdpa` for a windowed sequence the reference's
 dispatch would band (S a multiple of the window and at least two
 windows). Attention over a cache, or with a prefix, goes to the plain
-`sdpa`, as in the reference.
+`sdpa`, as in the reference. While autograd records, a fresh sequence
+takes the reference's plain dispatch (`banded_sdpa` or `sdpa`) on every
+device: the kernel has no backward.
 
 The caches are updated in place (the reference returns new arrays), which
 saves a copy of each cache per step; the functions still return the
@@ -214,16 +216,21 @@ def _sdpa_dispatch(cfg, q, k, v, positions, window, prefix_len):
     """Attention over a fresh sequence at positions 0..S-1. Without a
     prefix it is the flash kernel, as under the reference's
     `use_pallas=True`, whose plain version on the CPU is `banded_sdpa`
-    where the reference's plain dispatch takes it; the [B, 1, S, S] mask
-    bias is built only for the plain path that reads it."""
+    where the reference's plain dispatch takes it. While autograd records
+    (`nn.records_grad`) it is the reference's plain dispatch on every
+    device, as the reference trains under `use_pallas=False`: the kernel
+    has no backward. The [B, 1, S, S] mask bias is built only for the
+    plain path that reads it."""
     S = q.shape[1]
-    if prefix_len is None:
-        if (q.device.type == "cpu" and window and S == k.shape[1]
-                and S % window == 0 and S >= 2 * window):
-            return banded_sdpa(q, k, v, positions, window,
-                               cfg.logit_softcap)
+    bands = (window and prefix_len is None and S == k.shape[1]
+             and S % window == 0 and S >= 2 * window)
+    plain = nn.records_grad(q, k, v)
+    if prefix_len is None and not plain and not (
+            bands and q.device.type == "cpu"):
         return flash_ops.flash_attention(q, k, v, causal=True,
                                          window=window,
                                          softcap=cfg.logit_softcap)
+    if bands:
+        return banded_sdpa(q, k, v, positions, window, cfg.logit_softcap)
     bias = _mask_bias(positions, positions, window, prefix_len)
     return sdpa(q, k, v, bias, cfg.logit_softcap)

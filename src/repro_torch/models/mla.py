@@ -87,12 +87,17 @@ def _mla_latents(p, cfg, x, positions):
 def _scores(cfg, s_nope, q_rope, k_rope, q_pos, kv_pos):
     """fp32 (s_nope + s_rope) * scale, -inf where masked; in place in
     s_nope (the same values as the reference's additive mask on finite
-    scores, without three more [B, H, Sq, Skv] buffers)."""
+    scores, without three more [B, H, Sq, Skv] buffers), out of place
+    while autograd records (s_nope is a product's output, which the
+    "dots" remat policy keeps for the backward)."""
     m = cfg.mla
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    scores = s_nope.add_(torch.einsum("bqhd,bkd->bhqk", q_rope.float(),
-                                      k_rope.float())).mul_(scale)
+    s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float())
     ok = (kv_pos[:, None, :] <= q_pos[:, :, None]) & (kv_pos[:, None, :] >= 0)
+    if nn.records_grad(s_nope, s_rope):
+        return ((s_nope + s_rope) * scale).masked_fill(~ok[:, None],
+                                                       float("-inf"))
+    scores = s_nope.add_(s_rope).mul_(scale)
     return scores.masked_fill_(~ok[:, None], float("-inf"))
 
 

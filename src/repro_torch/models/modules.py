@@ -11,6 +11,11 @@ Conventions, as in the reference:
 `Params` holds a nested dict of tensors as an `nn.Module` whose
 parameter names are the reference's dict keys, so the functions on
 tensors read `p["w_gate"]` as the JAX code does.
+
+`records_grad` (the kernels' own test, `kernels/_build.py`) chooses the
+route at the model's three kernel sites: the plain, differentiable forms
+while autograd records (as the reference trains, under
+`use_pallas=False`), the CUDA kernels otherwise.
 """
 from __future__ import annotations
 
@@ -21,11 +26,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels._build import records_grad  # noqa: F401
+
 
 class Params(nn.Module):
     """A nested dict (or list) of tensors as a module. `p[key]` gives a
     tensor or a sub-`Params`; lists become `nn.ModuleList`s. The tensors
-    are parameters without gradients: the port runs inference only."""
+    are registered without gradients, so serving records nothing; a
+    trainer turns them on with `module.requires_grad_(True)`."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -46,6 +54,17 @@ class Params(nn.Module):
 
     def get(self, key: str, default=None):
         return self[key] if key in self else default
+
+
+def map_params(module: Params, fn) -> Params:
+    """A new module of `module`'s class and structure whose every tensor
+    is `fn(tensor)` (registered without gradients, as `Params` does)."""
+    def tree(m):
+        if isinstance(m, nn.ModuleList):
+            return [tree(c) for c in m]
+        return {**{k: fn(t) for k, t in m._parameters.items()},
+                **{k: tree(c) for k, c in m._modules.items()}}
+    return type(module)(tree(module))
 
 
 def _module_list(items) -> nn.ModuleList:

@@ -12,7 +12,10 @@ RG-LRU recurrence (per channel):
 Scoring and a prefill that carries state both run the recurrence through
 `kernels/rg_lru` (the CUDA kernel on the GPU, its plain sequential version
 on the CPU): a carried h folds into step 0, as the reference's `_scan`
-does, and the scan then starts from zero. Decode carries h (and the conv
+does, and the scan then starts from zero. While autograd records
+(`modules.records_grad`) both run the reference's `_scan`, a log-depth
+associative scan, on every device, as the reference trains under
+`use_pallas=False`: the kernel has no backward. Decode carries h (and the conv
 window) in `RGLRUState`, as the reference does.
 """
 from __future__ import annotations
@@ -71,6 +74,47 @@ def _gates(p, cfg, u):
     return a, bx
 
 
+def _combine(x, y):
+    """The recurrence's associative operator on (a, b) pairs."""
+    a1, b1 = x
+    a2, b2 = y
+    return a1 * a2, a2 * b1 + b2
+
+
+def _assoc_scan(a, b):
+    """Inclusive scan of `_combine` along axis 1 in log depth, in the
+    order of `jax.lax.associative_scan`: combine adjacent pairs, scan the
+    pairs, then fill in the even positions."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    ra, rb = _combine((a[:, 0:-1:2], b[:, 0:-1:2]), (a[:, 1::2], b[:, 1::2]))
+    oa, ob = _assoc_scan(ra, rb)                  # positions 1, 3, 5, ...
+    if n % 2 == 0:
+        ea, eb = _combine((oa[:, :-1], ob[:, :-1]), (a[:, 2::2], b[:, 2::2]))
+    else:
+        ea, eb = _combine((oa, ob), (a[:, 2::2], b[:, 2::2]))
+    ea = torch.cat([a[:, :1], ea], dim=1)         # positions 0, 2, 4, ...
+    eb = torch.cat([b[:, :1], eb], dim=1)
+
+    def interleave(even, odd):
+        out = torch.stack([even[:, :odd.shape[1]], odd], dim=2).flatten(1, 2)
+        return torch.cat([out, even[:, odd.shape[1]:]], dim=1)
+
+    return interleave(ea, oa), interleave(eb, ob)
+
+
+def _scan(a, bx, h0=None):
+    """The reference's `_scan`: h_t = a_t h_{t-1} + bx_t along axis 1 by an
+    associative scan in fp32, differentiable, with a carried h0 folded
+    into step 0. The model runs it while autograd records; the kernel
+    (and its sequential plain version) otherwise."""
+    if h0 is not None:
+        bx = torch.cat([bx[:, :1] + a[:, :1] * h0[:, None], bx[:, 1:]],
+                       dim=1)
+    return _assoc_scan(a, bx)[1]
+
+
 def rglru_apply(p, cfg, x, state: Optional[RGLRUState] = None):
     """x [B,S,D] -> (y [B,S,D], new_state)."""
     rc = cfg.rglru
@@ -79,7 +123,8 @@ def rglru_apply(p, cfg, x, state: Optional[RGLRUState] = None):
     if state is None:
         u = nn.conv1d_apply(p["conv"], u)
         a, bx = _gates(p, cfg, u)
-        h = rg_ops.rg_lru_scan(a, bx)
+        h = (_scan(a, bx) if nn.records_grad(a, bx)
+             else rg_ops.rg_lru_scan(a, bx))
         new_state = None
     elif x.shape[1] == 1:
         ut, conv_w = nn.conv1d_step(p["conv"], u[:, 0], state.conv)
@@ -90,12 +135,15 @@ def rglru_apply(p, cfg, x, state: Optional[RGLRUState] = None):
         full = torch.cat([state.conv.to(u.dtype), u], dim=1)
         u = nn.conv1d_apply(p["conv"], full)[:, state.conv.shape[1]:]
         a, bx = _gates(p, cfg, u)
-        # fold the carry into step 0 (two rounded operations, as the
-        # reference's `_scan`; bx is this call's own, so in place), then
-        # scan from zero: fmul(a_0, 0) + bx_0' is bx_0', so h equals the
-        # sequential recurrence from state.h
-        bx[:, 0] += a[:, 0] * state.h.float()
-        h = rg_ops.rg_lru_scan(a, bx)
+        if nn.records_grad(a, bx, state.h):
+            h = _scan(a, bx, h0=state.h.float())
+        else:
+            # fold the carry into step 0 (two rounded operations, as the
+            # reference's `_scan`; bx is this call's own, so in place),
+            # then scan from zero: fmul(a_0, 0) + bx_0' is bx_0', so h
+            # equals the sequential recurrence from state.h
+            bx[:, 0] += a[:, 0] * state.h.float()
+            h = rg_ops.rg_lru_scan(a, bx)
         new_state = RGLRUState(
             h[:, -1].to(state.h.dtype),
             full[:, -(rc.conv_width - 1):, :].to(state.conv.dtype))

@@ -12,7 +12,10 @@ The stateless path (scoring) runs the scan through `kernels/ssd_scan`
 (the CUDA kernel on the GPU, its plain version on the CPU); a prefill
 that carries state runs the plain chunked form `ssd_chunked` with `h0`,
 and decode carries (conv windows, ssd state) in `SSDState` through
-`ssd_step`, as the reference does.
+`ssd_step`, as the reference does. While autograd records
+(`modules.records_grad`) the stateless path runs `ssd_chunked` too, on
+every device, as the reference trains under `use_pallas=False`: the
+kernel has no backward.
 """
 from __future__ import annotations
 
@@ -193,9 +196,9 @@ def ssd_apply(p, cfg, x, state: Optional[SSDState] = None):
         qc = min(sc.chunk, S)
         while S % qc:
             qc //= 2
-        if state is None:
+        if state is None and not nn.records_grad(xh, dth, A, Bh, Ch):
             y, h_last = ssd_ops.ssd(xh, dth, A, Bh, Ch, chunk=qc)
-        else:
+        else:  # a carried state, or training: the plain chunked form
             y, h_last = ssd_chunked(xh, dth, A, Bh, Ch, chunk=qc, h0=h0)
         y = y + xh * p["D"].to(y.dtype)[None, None, :, None]
         y = y.reshape(B_, S, d_inner)

@@ -14,14 +14,19 @@ Block kinds: "attn" (GQA, or MLA under `attn_impl="mla"`), "local",
 returns after the residual add, as in the reference). Under
 `mlp_type="moe"` the first `moe.first_k_dense` layers take a dense SwiGLU
 of width `d_ff` and the others a MoE MLP, whose aux losses `stack_apply`
-sums in fp32 in layer order. Sharding constraints and rematerialisation
-have no counterpart in inference.
+sums in fp32 in layer order. While autograd records, each block runs
+under `_remat` at the reference's places: `cfg.remat` "full" recomputes
+the block in the backward, "dots" keeps its matrix products' outputs and
+recomputes the rest, "none" keeps everything. Sharding constraints have
+no counterpart on one device.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Iterator, List, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention, mla, moe, rglru, ssd
 from repro_torch.models import modules as nn
@@ -137,6 +142,25 @@ def stack_init(generator: torch.Generator, cfg):
 
 
 # ----------------------------- stack apply ---------------------------------
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _remat(cfg, fn, p, x):
+    """`fn(p, x)` with `cfg.remat` rematerialisation, as the reference's
+    `jax.checkpoint` (policy `checkpoint_dots` under "dots") around a
+    block. It applies only while autograd records through the block's
+    parameters or input, so serving calls run `fn` as they are."""
+    if cfg.remat == "none" or not torch.is_grad_enabled() \
+            or not nn.records_grad(x, *p.parameters()):
+        return fn(p, x)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, list(_DOTS))
+    return ckpt.checkpoint(fn, p, x, use_reentrant=False, **kw)
+
+
 def stack_apply(params, cfg, x, positions, prefix_len=None,
                 caches=None, cache_pos=None, kv_valid=None):
     """Apply all blocks: the prologue, then the groups in order. `caches`
@@ -148,19 +172,21 @@ def stack_apply(params, cfg, x, positions, prefix_len=None,
     aux_total = 0.0
     new_caches: Dict[str, Any] = {"prologue": [],
                                   "groups": [[] for _ in period]}
+
+    def run(p, x, kind, c):
+        return _remat(cfg, lambda pp, xx: block_apply(
+            pp, cfg, kind, xx, positions, prefix_len, c, cache_pos,
+            kv_valid), p, x)
+
     for i, kind in enumerate(prologue):
         c = None if caches is None else caches["prologue"][i]
-        x, nc, aux = block_apply(params["prologue"][i], cfg, kind, x,
-                                 positions, prefix_len, c, cache_pos,
-                                 kv_valid)
+        x, nc, aux = run(params["prologue"][i], x, kind, c)
         new_caches["prologue"].append(nc)
         aux_total = aux_total + aux
     for g in range(n_groups):
         for slot, kind in enumerate(period):
             c = None if caches is None else caches["groups"][slot][g]
-            x, nc, aux = block_apply(params["groups"][slot][g], cfg, kind,
-                                     x, positions, prefix_len, c, cache_pos,
-                                     kv_valid)
+            x, nc, aux = run(params["groups"][slot][g], x, kind, c)
             new_caches["groups"][slot].append(nc)
             aux_total = aux_total + aux
     return x, (new_caches if caches is not None else None), aux_total

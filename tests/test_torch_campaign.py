@@ -469,6 +469,43 @@ def test_stuck_worker_ends_the_campaign_unretried(monkeypatch):
     assert calls["n"] == 1 and time.perf_counter() - t0 < 5.0
 
 
+@pytest.mark.parametrize("enabled", [True, False])
+def test_capture_pauses_the_cyclic_collector(enabled):
+    """`simulator._gc_paused`, which every graph capture holds: no cyclic
+    collection runs while any thread holds it (a collection inside a
+    capture that destroys a dead attempt's graph invalidates the
+    capture), and the collector's state is restored when the last of
+    overlapping holds, from two threads, ends."""
+    import gc
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    inside, release = threading.Event(), threading.Event()
+    seen = {}
+
+    def other():
+        with sim._gc_paused():
+            inside.set()
+            release.wait(10)
+            seen["other"] = gc.isenabled()
+
+    try:
+        t = threading.Thread(target=other)
+        t.start()
+        assert inside.wait(10)
+        with sim._gc_paused():
+            seen["nested"] = gc.isenabled()
+        seen["after_nested"] = gc.isenabled()
+        release.set()
+        t.join(10)
+        assert not t.is_alive()
+        assert seen == {"other": False, "nested": False,
+                        "after_nested": False}, seen
+        assert gc.isenabled() is enabled
+        assert sim._GC_HOLDS[0] == 0
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
 def test_step_budget_trip_escalates_and_completes():
     """A starvation-level step budget trips `STALL_BUDGET`, the retry
     escalates it x`budget_escalation`, and the campaign still converges
