@@ -1638,7 +1638,7 @@ def phase_sections() -> dict:
         log(f"[5c sections] {name}: {record['sections'][name]['wall_s']:.1f}s"
             f", {len(gaps)} floats held, largest relative gap "
             f"{max(gaps, default=0.0):.3e}")
-    if set(bench_run.NOT_PORTED) != {"roofline"}:
+    if bench_run.NOT_PORTED:
         raise AssertionError(f"not ported: {bench_run.NOT_PORTED}")
     camp = record["campaign"]
     _check_campaign(camp, "5c")
@@ -3013,6 +3013,291 @@ def phase_train(smi: str, fault_libs) -> dict:
             "mamba": out, "ssd_in_model": in_model}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the sharded steps on a 1 x 1 mesh over NCCL, and the dry-run
+# ---------------------------------------------------------------------------
+# (a) Mamba-2 780M, phase 13's initial weights and data and AdamW: the
+# sharded step against the single-device one, losses (relative) and every
+# parameter (absolute, all below 1 in magnitude); both are deterministic
+# on the card, and a 1 x 1 mesh runs the same local ops
+SHARD_TRAIN_STEPS = 4
+TOL_SHARD_TRAIN = 1e-6
+# (b) RecurrentGemma-9B: prefill 1 x 4096, then decode steps
+SHARD_PROMPT, SHARD_DECODE = 4096, 8
+# (c) the reference's hill-climb cells, on the 16 x 16 fake mesh
+DRYRUN_CELLS = (("deepseek-v2-lite-16b", "train_4k"),
+                ("qwen2-72b", "train_4k"),
+                ("minicpm3-4b", "decode_32k"))
+DRYRUN_JSON = ROOT / "build" / "repro_torch" / "phase14_dryrun.json"
+DRYRUN_TIMEOUT_S = 600
+
+
+def _nccl_group():
+    """A process group of one rank over NCCL on card 0 (this process
+    started it: True) or the one in place (False)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return False
+    torch.cuda.set_device(0)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    return True
+
+
+def _timed_steps(step, params, state, batches) -> tuple:
+    """(losses, seconds a step, peak bytes) of one step on each batch."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return losses, secs, torch.cuda.max_memory_allocated()
+
+
+def _shard_train(mesh, smi: str) -> dict:
+    """(a): 4 steps of 4 x 2048 on the mesh and on one device."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import lm
+    from repro_torch.parallel import sharding
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train import train_step as ts
+    cfg = configs.get_config("mamba2-780m")
+    n = MAMBA_TRAIN["steps"]
+    ocfg = optim.AdamWConfig(lr_peak=1e-3, warmup_steps=max(n // 10, 1),
+                             total_steps=n)
+    data = iter(SyntheticLM(vocab=cfg.vocab, batch=MAMBA_TRAIN["batch"],
+                            seq_len=MAMBA_TRAIN["seq"], seed=0))
+    batches = [ts.to_device(next(data), "cuda")
+               for _ in range(SHARD_TRAIN_STEPS)]
+
+    def init():     # phase 13's initial weights (`Trainer.init_state`)
+        p = lm.lm_init(cfg, torch.Generator().manual_seed(0), device="cpu")
+        return p.to("cuda").requires_grad_(True)
+
+    p1 = init()
+    one = _timed_steps(ts.make_train_step(cfg, ocfg), p1,
+                       optim.adamw_init(p1), batches)
+    want = {k: v.detach().cpu() for k, v in p1.named_parameters()}
+    del p1
+    torch.cuda.empty_cache()
+    step, place = ts.make_sharded_train_step(cfg, ocfg, mesh)
+    p2, state = place(init(), None)
+    got = _timed_steps(step, p2, optim.adamw_init(p2), batches)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got[0], one[0]))
+    param_abs = max(
+        float((sharding.full_tensor(v.detach()).cpu() - want[k]).abs().max())
+        for k, v in p2.named_parameters())
+    placements = {str(v.placements) for v in p2.parameters()}
+    del p2, state
+    torch.cuda.empty_cache()
+    med = sorted(got[1][1:])[len(got[1][1:]) // 2]
+    med1 = sorted(one[1][1:])[len(one[1][1:]) // 2]
+    log(f"[14 shard] (a) {cfg.name} {cfg.n_layers} layers on mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} (NCCL), "
+        f"{MAMBA_TRAIN['batch']} x {MAMBA_TRAIN['seq']} tokens, "
+        f"{SHARD_TRAIN_STEPS} steps; parameters as DTensors "
+        f"{sorted(placements)}; losses sharded "
+        + ", ".join(f"{x:.6f}" for x in got[0]) + " / one device "
+        + ", ".join(f"{x:.6f}" for x in one[0])
+        + f"; rel max {loss_rel:.3e}, parameters abs max {param_abs:.3e} "
+        f"(tol {TOL_SHARD_TRAIN})")
+    log(f"[14 shard] (a) step median of steps 2-{SHARD_TRAIN_STEPS}: "
+        f"sharded {med:.3f}s, one device {med1:.3f}s (phase 13's trainer "
+        f"above); peak memory sharded {got[2] / 2**30:.2f} GiB, one device "
+        f"{one[2] / 2**30:.2f} GiB | {smi}")
+    if not (loss_rel <= TOL_SHARD_TRAIN and param_abs <= TOL_SHARD_TRAIN):
+        raise AssertionError(f"sharded Mamba-2 step: losses {loss_rel}, "
+                             f"parameters {param_abs}")
+    return {"losses": got[0], "losses_one": one[0], "step_s": med,
+            "step_s_one": med1, "peak": got[2], "peak_one": one[2]}
+
+
+def _shard_serve(mesh, smi: str) -> dict:
+    """(b): RecurrentGemma-9B's prefill and decode steps on one device,
+    then the same parameters placed on the mesh (in place) and the
+    sharded steps on fresh caches: logits bit for bit, launches equal."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.bench import lm_serve
+    from repro_torch.models import lm
+    from repro_torch.train import train_step as ts
+    cfg = configs.get_config("recurrentgemma-9b")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (1, SHARD_PROMPT + SHARD_DECODE),
+                         generator=gen, device="cuda")
+    p = lm_serve.build(cfg, 0, "cuda")
+
+    def serve(prefill, decode, params, make_caches):
+        """The steps twice on fresh caches (the first warms the library
+        handles and DTensor's sharding caches up), the second timed and
+        counted."""
+        warm = prefill(params, toks[:, :SHARD_PROMPT], make_caches())
+        del warm
+        caches = make_caches()
+        _reset_lm_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = prefill(params, toks[:, :SHARD_PROMPT], caches)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        pre_launches = _lm_launches()
+        out = [logits]
+        for i in range(SHARD_DECODE):
+            logits, caches = decode(params, toks[:, SHARD_PROMPT + i],
+                                    SHARD_PROMPT + i, caches)
+            out.append(logits)
+        torch.cuda.synchronize()
+        return torch.stack(out), t_pre, pre_launches, _lm_launches()
+
+    def caches():
+        return lm.init_caches(cfg, 1, SHARD_PROMPT + SHARD_DECODE,
+                              device="cuda")
+
+    # the serve steps run under no_grad
+    one = serve(ts.make_serve_step(cfg, "prefill"),
+                ts.make_serve_step(cfg, "decode"), p, caches)
+    prefill, place = ts.make_sharded_serve_step(cfg, mesh, "prefill")
+    decode, _ = ts.make_sharded_serve_step(cfg, mesh, "decode")
+    p, _ = place(p, None)
+
+    def placed():
+        return place(p, caches())[1]
+    got = serve(prefill, decode, p, placed)
+    del p
+    torch.cuda.empty_cache()
+    equal = torch.equal(got[0], one[0])
+    log(f"[14 shard] (b) {cfg.name} {cfg.n_layers} layers (fp32 at rest) on "
+        f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}: prefill 1 x "
+        f"{SHARD_PROMPT} sharded {got[1]:.3f}s, one device {one[1]:.3f}s; "
+        f"{SHARD_DECODE} decode steps; logits bit-equal {equal} (max abs "
+        f"{float((got[0] - one[0]).abs().max()):.3e}); launches sharded "
+        f"prefill {got[2]}, all {got[3]}; one device prefill {one[2]}, all "
+        f"{one[3]} | {smi}")
+    if not equal:
+        raise AssertionError("sharded RecurrentGemma logits differ")
+    if got[2] != one[2] or got[3] != one[3] \
+            or got[2]["flash_attention"] != EXPECTED_LAUNCHES[
+                "prefill_launches"]["flash_attention"] \
+            or got[2]["rg_lru"] != EXPECTED_LAUNCHES[
+                "prefill_launches"]["rg_lru"]:
+        raise AssertionError(f"sharded launches {got[2]} {got[3]}, one "
+                             f"device {one[2]} {one[3]}")
+    return {"launches": got[3], "prefill_s": got[1], "prefill_s_one": one[1]}
+
+
+def _dryrun_cells(smi: str) -> dict:
+    """(c): the dry-run of the three cells, each in a process of its own
+    (a fake process group is process-global), then `bench.run`'s
+    roofline section on their record."""
+    import os
+    from repro_torch.bench import run as bench_run
+    from repro_torch.launch import roofline
+    DRYRUN_JSON.parent.mkdir(parents=True, exist_ok=True)
+    code = ("import json, sys\n"
+            "from repro_torch.launch import dryrun\n"
+            "r = dryrun.run_cell(sys.argv[1], sys.argv[2])\n"
+            "json.dump(r, open(sys.argv[3], 'w'))\n")
+    t0 = time.perf_counter()
+    parts = [DRYRUN_JSON.with_suffix(f".{i}.json")
+             for i in range(len(DRYRUN_CELLS))]
+    procs = [subprocess.Popen(      # one process a cell, side by side
+        [sys.executable, "-c", code, a, s, str(part)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 CUDA_VISIBLE_DEVICES=""))
+        for (a, s), part in zip(DRYRUN_CELLS, parts)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=DRYRUN_TIMEOUT_S))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for proc, (out, err) in zip(procs, outs):
+        for line in out.splitlines():
+            if line.startswith("["):
+                log(f"[14 dryrun] {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"dry-run exited {proc.returncode}:\n"
+                                 f"{out[-4000:]}\n{err[-4000:]}")
+    cells = [json.loads(part.read_text()) for part in parts]
+    DRYRUN_JSON.write_text(json.dumps(cells))
+    os.environ["REPRO_DRYRUN_JSON"] = str(DRYRUN_JSON)
+    try:
+        results, failures = bench_run.run_sections(None, only={"roofline"})
+    finally:
+        os.environ.pop("REPRO_DRYRUN_JSON")
+    if failures:
+        raise AssertionError(f"roofline section: {failures}")
+    rows = results["roofline"]["result"]
+    for cell, row in zip(cells, rows):
+        t = roofline.roofline_terms(cell)
+        log(f"[14 dryrun] {cell['arch']} x {cell['shape']} on "
+            f"{cell['n_devices']} H100 (16 x 16): dot FLOPs/card "
+            f"{cell['dot_flops_per_dev']:.4e}, dot bytes/card "
+            f"{cell['dot_bytes_per_dev']:.4e}, collective bytes/card "
+            f"{cell['collective_bytes']}, argument bytes/card "
+            f"{cell['memory']['argument_size_in_bytes']:.4e}; compute "
+            f"{t['compute_s']:.4f}s, memory {t['memory_s']:.4f}s, collective "
+            f"{t['collective_s']:.4f}s, bound {t['dominant']} "
+            f"{t['step_time_bound_s']:.4f}s, useful {t['useful_ratio']:.3f}, "
+            f"roofline fraction {t['roofline_fraction']:.3f} (H100 "
+            f"constants; fake process group on the host, no card)")
+        if cell["status"] != "ok" or row.get("status") != "ok" \
+                or cell["dot_flops_per_dev"] * cell["n_devices"] \
+                < cell["model_flops_global"] \
+                or not t["step_time_bound_s"] > 0 \
+                or not 0 <= t["roofline_fraction"] <= 1.5:
+            raise AssertionError(f"dry-run cell {cell['arch']} x "
+                                 f"{cell['shape']}: {cell} {t}")
+    log(f"[14 dryrun] {len(cells)} cells in {wall:.1f}s (a process each, "
+        f"side by side) | {smi}")
+    return {"cells": cells, "rows": rows, "wall_s": wall}
+
+
+def phase_shard(smi: str) -> dict:
+    """Phase 14: the sharded steps on a 1 x 1 mesh over NCCL at full
+    width and depth, (a) Mamba-2 780M's train step and (b)
+    RecurrentGemma-9B's prefill and decode, each against the
+    single-device step; then (c) the dry-run of three cells on the
+    16 x 16 production mesh of a fake process group, and its roofline."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as meshlib
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    own = _nccl_group()
+    try:
+        mesh = meshlib.make_local_mesh(1, 1)
+        train = _shard_train(mesh, smi)
+        serve = _shard_serve(mesh, smi)
+    finally:
+        if own:
+            dist.destroy_process_group()
+    t1 = time.perf_counter()
+    dry = _dryrun_cells(smi)
+    log(f"[14 shard] done: (a)+(b) {t1 - t0:.1f}s, (c) "
+        f"{time.perf_counter() - t1:.1f}s")
+    return {"launches": serve["launches"], "train": train, "serve": serve,
+            "dryrun": dry}
+
+
 ETF_SRC = "src/repro_torch/kernels/etf_ft/csrc/etf_ft.cu"
 KERNELS = (  # name, source, TPU kernel replaced, path
     ("etf_ft_search_masked", ETF_SRC,
@@ -3052,6 +3337,7 @@ def main() -> int:
     phase_deepseek_cross()
     cfg_path = phase_configs()
     train_path = phase_train(smi, built["ssd_faults"])
+    shard_path = phase_shard(smi)
     checked = {"das": kern, "lm": lm_kern, "mamba": ssd_kern}
     # the DAS kernels' launches over its four paths: summary40 (phase
     # 4), the fault path (5b), the benchmark's sections (5c) and the
@@ -3059,10 +3345,12 @@ def main() -> int:
     das_launches = {k: das_path["launches"][k] + fault_path["launches"][k]
                     + sections["launches"][k] + campaign_path["launches"][k]
                     for k in das_path["launches"]}
-    # flash over its three model paths: RecurrentGemma (phase 6), and the
-    # GQA configs of phase 12; DeepSeek (phase 10) launches none
+    # flash and the RG-LRU scan over their model paths: RecurrentGemma
+    # (phase 6) and its sharded steps (phase 14), and the GQA configs of
+    # phase 12; DeepSeek (phase 10) launches none
     lm_launches = {k: lm_path["launches"][k] + ds_path["launches"][k]
-                   + cfg_path["launches"][k] for k in lm_path["launches"]}
+                   + cfg_path["launches"][k] + shard_path["launches"][k]
+                   for k in lm_path["launches"]}
     # the SSD kernel over its two paths: Mamba-2 serving (phase 8) and the
     # trained Mamba-2's held-out loss and logits (phase 13)
     mamba_launches = {k: mamba_path["launches"][k]

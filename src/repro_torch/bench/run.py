@@ -7,7 +7,8 @@ record of its own.
 
 The port of `benchmarks/run.py`. The sections run in the reference's
 order on one `Bench`, so the two oracle sweeps and the DAS training
-happen once; every sweep goes through the crash-safe campaign runner.
+happen once (`roofline` prints the dry-run record's table, or nothing
+without one); every sweep goes through the crash-safe campaign runner.
 `--resume DIR` checkpoints every sweep's chunks into DIR (atomic
 write-temp + rename); the same command run again after a crash or a
 SIGKILL resumes from the completed chunks and gives byte-identical
@@ -36,7 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch.bench import (common, faults, fig2, fig3, heuristic,
-                               overhead, serving_das, summary40, table2)
+                               overhead, roofline_table, serving_das,
+                               summary40, table2)
 from repro_torch.core import campaign, simulator as sim
 from repro_torch.kernels.etf_ft import ops
 
@@ -49,11 +51,10 @@ SECTIONS = [
     ("overhead", "scheduling overhead anchors", overhead.run),
     ("faults", "fault-injection degradation curves", faults.run),
     ("serving_das", "beyond-paper: DAS serving dispatch", serving_das.run),
+    ("roofline", "dry-run roofline table", roofline_table.run),
 ]
-# the reference's other section, and where the port stands on it
-NOT_PORTED = {
-    "roofline": "not ported: ROADMAP queue 1 item 9 (launch and analysis)",
-}
+# sections of the reference's harness the port does not run: none left
+NOT_PORTED: dict = {}
 REFERENCE_RECORD = (Path(__file__).resolve().parents[3] / "benchmarks"
                     / "BENCH_sweep.json")
 

@@ -21,6 +21,12 @@ named by their path, `1.m.stack.groups.0.3.attn.wq`; the manifest records
 each leaf's name, shape and dtype, and `restore` checks the names
 against the tree it restores into. bf16 has no numpy dtype: a bf16 leaf
 is saved bit for bit as its int16 view, with "bfloat16" in the manifest.
+
+Sharded trees (DTensors, `parallel/sharding.py`) are saved whole: every
+rank gathers each leaf (`full_tensor()`), rank 0 writes, and the files
+are those of the same tree on one device. A restore puts each leaf on
+the placements of the DTensor it restores into, so a checkpoint written
+on one mesh restores onto another (the trainer's elastic re-mesh).
 """
 from __future__ import annotations
 
@@ -60,6 +66,8 @@ def _host(leaf) -> Tuple[np.ndarray, str]:
     """A numpy copy of a leaf that shares no memory with it, and the
     dtype name the manifest records."""
     if isinstance(leaf, torch.Tensor):
+        if hasattr(leaf, "full_tensor"):      # a DTensor: gathered whole
+            leaf = leaf.detach().full_tensor()
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy(), BF16
@@ -118,7 +126,11 @@ def _save_host(path: str, snap, step: int, meta: Optional[dict]) -> str:
 
 
 def save(path: str, tree, step: int, meta: Optional[dict] = None) -> str:
-    return _save_host(path, snapshot(tree), step, meta)
+    snap = snapshot(tree)
+    step_dir = _save_host(path, snap, step, meta) if _writer() else \
+        os.path.join(path, f"step_{step:08d}")
+    _barrier()
+    return step_dir
 
 
 def latest_step(path: str) -> Optional[int]:
@@ -140,6 +152,32 @@ def _tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
     return t.view(torch.bfloat16) if dtype == BF16 else t
 
 
+def _placed(full: torch.Tensor, like, device) -> torch.Tensor:
+    """A saved whole tensor on `device`, or, where `like` is a DTensor, on
+    like's mesh and placements (every rank read the same file, so each
+    keeps its own shard: no collective)."""
+    full = full.to(device)
+    if not hasattr(like, "placements"):
+        return full
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(full, like.device_mesh, like.placements,
+                             src_data_rank=None)
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: the only one, or rank 0
+    of a process group (every rank takes the snapshot, whose DTensor
+    gathers are collective)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _rebuild(like, saved, device):
     """`like` with its leaves replaced, in order, by the (array, dtype)
     pairs of the iterator `saved`: tensors on `device` (default: each
@@ -150,7 +188,7 @@ def _rebuild(like, saved, device):
     if isinstance(like, nn.Module):
         with torch.no_grad():
             for _, p in like.named_parameters():
-                p.copy_(_tensor(*next(saved)))
+                p.copy_(_placed(_tensor(*next(saved)), p, p.device))
         return like
     if isinstance(like, dict):
         return {k: _rebuild(v, saved, device) for k, v in like.items()}
@@ -160,8 +198,8 @@ def _rebuild(like, saved, device):
         return type(like)(_rebuild(v, saved, device) for v in like)
     a, dtype = next(saved)
     if isinstance(like, torch.Tensor):
-        return _tensor(a, dtype).to(like.device if device is None
-                                    else device)
+        return _placed(_tensor(a, dtype), like,
+                       like.device if device is None else device)
     if dtype == BF16:
         raise ValueError("a bfloat16 leaf restores into a tensor only")
     if isinstance(like, (bool, int, float)):
@@ -211,6 +249,7 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()       # the other ranks read what rank 0 wrote
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -232,8 +271,9 @@ class AsyncCheckpointer:
             except BaseException as e:  # surfaced on next wait()
                 self._error = e
 
-        self._thread = threading.Thread(target=run, daemon=True)
-        self._thread.start()
+        if _writer():
+            self._thread = threading.Thread(target=run, daemon=True)
+            self._thread.start()
 
 
 def prune_old(path: str, keep: int = 3):

@@ -1,10 +1,11 @@
 """Model configuration, a copy of the JAX package's `configs/base.py`.
 
-The fields are the reference's, less its sharding and kernel knobs
-(`scan_layers`, `shard_strategy`, `use_pallas`): the port picks a kernel
-by the device of the tensors and by whether autograd records, not by a
-flag. `remat` is the reference's: the blocks a training step
-recomputes in its backward (`models/transformer.py`).
+The fields are the reference's, less its layer-scan and kernel knobs
+(`scan_layers`, `use_pallas`): the port runs its layers in a Python loop
+and picks a kernel by the device of the tensors and by whether autograd
+records, not by a flag. `remat` is the reference's: the blocks a
+training step recomputes in its backward (`models/transformer.py`).
+`shard_strategy` is the reference's too: `parallel/sharding.py` reads it.
 """
 from __future__ import annotations
 
@@ -96,6 +97,11 @@ class ModelConfig:
     param_dtype: str = "float32"
     # training
     remat: str = "full"           # none | full | dots
+    # sharding strategy: "tp" (FSDP x tensor-parallel, default) or
+    # "ep_dp" (batch shards over ALL mesh axes incl. "model"; non-expert
+    # params replicate over "model"; experts shard over "model" = pure
+    # data-parallel attention + expert parallelism)
+    shard_strategy: str = "tp"
     # decode-path optimization: MLA weight absorption (attention runs in the
     # compressed latent space; no per-step K/V expansion) — §Perf iteration.
     mla_absorb: bool = False

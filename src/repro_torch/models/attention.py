@@ -17,6 +17,7 @@ cache, so callers read the same as in the reference.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import modules as nn
+from repro_torch.parallel import sharding as shd
 
 
 class KVCache(NamedTuple):
@@ -61,12 +63,13 @@ class WindowKVCache(NamedTuple):
         W = self.k.shape[1]
         T = min(S, W)
         src0 = S - T
-        new_abs = cache_pos + src0 + torch.arange(
-            T, dtype=torch.int32, device=self.pos.device)
-        slots = (new_abs % W).long()
-        self.k[:, slots] = k[:, src0:].to(self.k.dtype)
-        self.v[:, slots] = v[:, src0:].to(self.v.dtype)
-        self.pos[slots] = new_abs
+        new_abs = range(cache_pos + src0, cache_pos + S)
+        slots = [a % W for a in new_abs]
+        shd.write_rows(self.k, 1, slots, k[:, src0:])
+        shd.write_rows(self.v, 1, slots, v[:, src0:])
+        shd.write_rows(self.pos, 0, slots, torch.arange(
+            new_abs.start, new_abs.stop, dtype=torch.int32,
+            device=self.pos.device))
         return self
 
 
@@ -102,7 +105,7 @@ def _mask_bias(q_pos, kv_pos, window: int, prefix_len=None):
     if prefix_len is not None:
         pl = prefix_len[:, None, None]
         ok |= (k < pl) & (q < pl) & (k >= 0)
-    bias = torch.zeros(ok.shape, dtype=torch.float32, device=ok.device)
+    bias = torch.zeros_like(ok, dtype=torch.float32)
     return bias.masked_fill_(~ok, float("-inf"))[:, None]
 
 
@@ -145,14 +148,14 @@ def attn_apply(p, cfg, x, positions, prefix_len=None, window: int = 0,
     B, S = x.shape[0], x.shape[1]
 
     if cache is None:
-        out = _sdpa_dispatch(cfg, q, k, v, positions, window, prefix_len)
+        out = _attend(_fresh(cfg, window), q, k, v, positions, prefix_len)
     elif isinstance(cache, WindowKVCache):
         cache = cache.update(k, v, cache_pos)
         if S > 1:
             # windowed prefill: attend within the fresh sequence only
             # (window <= S assumed; the ring now holds the trailing W)
-            out = _sdpa_dispatch(cfg, q, k, v, positions, window,
-                                 prefix_len)
+            out = _attend(_fresh(cfg, window), q, k, v, positions,
+                          prefix_len)
         else:
             if kv_valid is None:
                 kv_valid = torch.full((B,), cache_pos + S,
@@ -161,11 +164,13 @@ def attn_apply(p, cfg, x, positions, prefix_len=None, window: int = 0,
             kv_pos = torch.where((kv_pos >= 0)
                                  & (kv_pos < kv_valid[:, None]), kv_pos, -1)
             bias = _mask_bias(positions, kv_pos, window, prefix_len)
-            out = sdpa(q, cache.k, cache.v, bias, cfg.logit_softcap)
+            out = _attend(functools.partial(sdpa, softcap=cfg.logit_softcap),
+                          q, cache.k, cache.v, bias)
     else:
         S_max = cache.k.shape[1]
-        cache.k[:, cache_pos:cache_pos + S] = k.to(cache.k.dtype)
-        cache.v[:, cache_pos:cache_pos + S] = v.to(cache.v.dtype)
+        rows = range(cache_pos, cache_pos + S)
+        shd.write_rows(cache.k, 1, rows, k)
+        shd.write_rows(cache.v, 1, rows, v)
         if kv_valid is None:
             kv_valid = torch.full((B,), cache_pos + S, dtype=torch.int32,
                                   device=x.device)
@@ -173,10 +178,33 @@ def attn_apply(p, cfg, x, positions, prefix_len=None, window: int = 0,
                               device=x.device)[None].expand(B, S_max)
         kv_pos = torch.where(kv_pos < kv_valid[:, None], kv_pos, -1)
         bias = _mask_bias(positions, kv_pos, window, prefix_len)
-        out = sdpa(q, cache.k, cache.v, bias, cfg.logit_softcap)
-    H, Dh = out.shape[2], out.shape[3]
-    y = nn.linear(out.reshape(B, S, H * Dh), p["wo"])
+        out = _attend(functools.partial(sdpa, softcap=cfg.logit_softcap),
+                      q, cache.k, cache.v, bias)
+    y = nn.linear(shd.merge_heads(out, out.shape[2]), p["wo"])
     return y, cache
+
+
+def _fresh(cfg, window: int):
+    """Attention over a fresh sequence, as `_attend` calls it."""
+    def fn(q, k, v, positions, prefix_len):
+        return _sdpa_dispatch(cfg, q, k, v, positions, window, prefix_len)
+    return fn
+
+
+def _attend(fn, q, k, v, *rest):
+    """`fn(q, k, v, *rest)` (an attention over [B, S, H|K, D] tensors;
+    `rest` are [B, ...] positions, prefix lengths or a mask bias, or None)
+    on each rank's batch and head shard under a sharding policy: heads
+    and batch are independent, so each rank attends its own, the kernel
+    included, with no collective inside. The heads split over "model"
+    where both H and K divide it; a cache whose sequence is sharded is
+    gathered along it first. Plain tensors: `fn` as it is."""
+    bat = shd.axis_for("batch", q.shape[0])
+    heads = (bat, None, shd.head_axis(bat, q.shape[2], k.shape[2]), None)
+    rows = [None if t is None else (bat,) + (None,) * (t.ndim - 1)
+            for t in rest]
+    return shd.local_call(fn, (q, k, v, *rest), (heads,) * 3 + tuple(rows),
+                          (heads,))
 
 
 def banded_sdpa(q, k, v, positions, window: int, softcap: float = 0.0):
@@ -216,15 +244,16 @@ def _sdpa_dispatch(cfg, q, k, v, positions, window, prefix_len):
     """Attention over a fresh sequence at positions 0..S-1. Without a
     prefix it is the flash kernel, as under the reference's
     `use_pallas=True`, whose plain version on the CPU is `banded_sdpa`
-    where the reference's plain dispatch takes it. While autograd records
-    (`nn.records_grad`) it is the reference's plain dispatch on every
-    device, as the reference trains under `use_pallas=False`: the kernel
-    has no backward. The [B, 1, S, S] mask bias is built only for the
-    plain path that reads it."""
+    where the reference's plain dispatch takes it. While autograd records,
+    and on fake tensors (`nn.plain_forms`), it is the reference's plain
+    dispatch on every device, as the reference trains under
+    `use_pallas=False`: the kernel has no backward. The [B, 1, S, S] mask
+    bias is built only for the plain path that reads it. Under a sharding
+    policy it runs on each rank's batch and head shard (`_attend`)."""
     S = q.shape[1]
     bands = (window and prefix_len is None and S == k.shape[1]
              and S % window == 0 and S >= 2 * window)
-    plain = nn.records_grad(q, k, v)
+    plain = nn.plain_forms(q, k, v)
     if prefix_len is None and not plain and not (
             bands and q.device.type == "cpu"):
         return flash_ops.flash_attention(q, k, v, causal=True,

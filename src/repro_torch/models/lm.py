@@ -30,6 +30,7 @@ import torch
 from repro_torch.core.device import resolve
 from repro_torch.models import modules as nn
 from repro_torch.models import transformer
+from repro_torch.parallel import sharding as shd
 
 IGNORE = -100
 
@@ -81,17 +82,30 @@ def _scale(cfg, dt):
     return float(torch.tensor(cfg.embed_scale, dtype=dt))
 
 
+def _lookup(table, tokens):
+    """Rows `tokens` of `table`. Under a sharding policy each rank looks
+    its tokens up in the whole table, gathered (DTensor's rules for a
+    lookup in a split vocabulary, and for the indexing's backward, do not
+    hold on every torch version); the table's gradient comes back as a
+    partial sum over the batch's axes."""
+    if not shd.is_dtensor(table):
+        return table[tokens]
+    rows = shd.spec_of(tokens)
+    return shd.local_call(lambda t, i: t[i], (table, tokens),
+                          ((None,) * table.ndim, rows), (rows + (None,),))
+
+
 def _embed(p, cfg, tokens):
     """Gather, then cast: the same values as the reference's cast of the
     whole table before the gather, without the table-sized copy. K
     codebooks' embeddings are summed in order in the compute dtype."""
     dt = compute_dtype(cfg)
     if cfg.n_codebooks > 1:           # tokens [B, K, S]
-        x = p["embed"][0][tokens[:, 0]].to(dt)
+        x = _lookup(p["embed"][0], tokens[:, 0]).to(dt)
         for k in range(1, cfg.n_codebooks):
-            x = x + p["embed"][k][tokens[:, k]].to(dt)
+            x = x + _lookup(p["embed"][k], tokens[:, k]).to(dt)
     else:
-        x = p["embed"][tokens].to(dt)
+        x = _lookup(p["embed"], tokens).to(dt)
     if cfg.embed_scale:
         x = x * _scale(cfg, dt)
     return x
@@ -99,7 +113,14 @@ def _embed(p, cfg, tokens):
 
 def _head(p, cfg, x):
     """x [B, S, D] -> logits [B, S, V] ([B, K, S, V] for K codebooks)."""
-    if cfg.tie_embeddings:
+    if cfg.n_codebooks > 1 and shd.is_dtensor(x):
+        # one product a codebook (DTensor cannot flatten the codebook
+        # and vocab dims of a stack whose vocab is split)
+        w = p["embed"] if cfg.tie_embeddings else p["head"]
+        logits = torch.stack(
+            [nn.linear(x, (w[k].T if cfg.tie_embeddings else w[k])
+                       .to(x.dtype)) for k in range(cfg.n_codebooks)], 1)
+    elif cfg.tie_embeddings:
         if cfg.n_codebooks > 1:
             logits = torch.einsum("bsd,kvd->bksv", x,
                                   p["embed"].to(x.dtype))
@@ -140,11 +161,15 @@ def forward(p, cfg, tokens, prefix_embeds=None, positions=None,
     if cfg.prefix_lm and n_pre:
         prefix_len = torch.full((B,), n_pre, dtype=torch.int32,
                                 device=x.device)
+    x = shd.constrain(x, ("batch", "seq", None))
     x, new_caches, aux = transformer.stack_apply(
         p["stack"], cfg, x, positions, prefix_len=prefix_len, caches=caches,
         cache_pos=None if cache_pos is None else int(cache_pos),
         kv_valid=kv_valid)
-    x = nn.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    # the head and the loss read whole sequences (sequence parallelism
+    # split them over "model"; a no-op otherwise)
+    x = shd.constrain(nn.rms_norm(x, p["final_norm"], cfg.norm_eps),
+                      ("batch", None, None))
     if n_pre:
         x = x[:, n_pre:]
     if head_mode == "none":
@@ -166,7 +191,15 @@ def _ce_from_logits(cfg, logits, labels):
     mask = labels != IGNORE
     safe = torch.clamp(labels, min=0)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if shd.is_dtensor(logits):
+        # a DTensor, its vocab dim maybe sharded: pick the gold logit by a
+        # comparison with the vocab index, which shards as the logits do
+        # and sums exactly (one value and zeros) where `gather` would
+        # need the whole row
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = torch.where(vocab == safe[..., None], logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     return ((logz - gold) * mask).sum(), mask.sum()
 
 

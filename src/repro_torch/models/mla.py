@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.models import modules as nn
+from repro_torch.parallel import sharding as shd
 
 
 class MLACache(NamedTuple):
@@ -101,17 +102,35 @@ def _scores(cfg, s_nope, q_rope, k_rope, q_pos, kv_pos):
     return scores.masked_fill_(~ok[:, None], float("-inf"))
 
 
+def _local(fn, heads_in, rows_in):
+    """`fn(*heads_in, *rows_in)` on each rank's batch and head shard
+    under a sharding policy (`attention._attend`'s split): `heads_in` are
+    [B, S, H, ...] tensors, `rows_in` [B, ...] ones whole over the heads
+    (latents, rope keys, positions, gathered along a sharded cache
+    sequence); the output is [B, S, H, ...]."""
+    t = heads_in[0]
+    bat = shd.axis_for("batch", t.shape[0])
+    heads = (bat, None, shd.head_axis(bat, t.shape[2]), None)
+    rows = tuple((bat,) + (None,) * (r.ndim - 1) for r in rows_in)
+    return shd.local_call(fn, (*heads_in, *rows_in),
+                          (heads,) * len(heads_in) + rows, (heads,))
+
+
 def _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, q_pos, kv_pos):
     """Attention over (possibly cached) latents."""
     ckn = nn.rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
     k_nope = nn.linear(ckn, p["w_uk"])                      # [B,Skv,H,dn]
     v = nn.linear(ckn, p["w_uv"])                           # [B,Skv,H,dv]
-    s_nope = torch.einsum("bqhd,bkhd->bhqk", q_nope.float(), k_nope.float())
-    scores = _scores(cfg, s_nope, q_rope, k_rope, q_pos, kv_pos)
-    w = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", w, v)
-    B, S, H, Dv = out.shape
-    return nn.linear(out.reshape(B, S, H * Dv), p["wo"])
+
+    def core(q_nope, q_rope, k_nope, v, k_rope, q_pos, kv_pos):
+        s_nope = torch.einsum("bqhd,bkhd->bhqk", q_nope.float(),
+                              k_nope.float())
+        scores = _scores(cfg, s_nope, q_rope, k_rope, q_pos, kv_pos)
+        w = torch.softmax(scores, dim=-1).to(v.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+    out = _local(core, (q_nope, q_rope, k_nope, v), (k_rope, q_pos, kv_pos))
+    return nn.linear(shd.merge_heads(out, out.shape[2]), p["wo"])
 
 
 def _mla_attend_absorbed(p, cfg, q_nope, q_rope, c_kv, k_rope, q_pos,
@@ -123,13 +142,16 @@ def _mla_attend_absorbed(p, cfg, q_nope, q_rope, c_kv, k_rope, q_pos,
     ckn = nn.rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)      # [B,Skv,R]
     q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope,
                          p["w_uk"].to(q_nope.dtype))         # [B,Sq,H,R]
-    s_nope = torch.einsum("bqhr,bkr->bhqk", q_lat.float(), ckn.float())
-    scores = _scores(cfg, s_nope, q_rope, k_rope, q_pos, kv_pos)
-    w = torch.softmax(scores, dim=-1).to(c_kv.dtype)
-    o_lat = torch.einsum("bhqk,bkr->bqhr", w, ckn)
+
+    def core(q_lat, q_rope, ckn, k_rope, q_pos, kv_pos):
+        s_nope = torch.einsum("bqhr,bkr->bhqk", q_lat.float(), ckn.float())
+        scores = _scores(cfg, s_nope, q_rope, k_rope, q_pos, kv_pos)
+        w = torch.softmax(scores, dim=-1).to(ckn.dtype)
+        return torch.einsum("bhqk,bkr->bqhr", w, ckn)
+
+    o_lat = _local(core, (q_lat, q_rope), (ckn, k_rope, q_pos, kv_pos))
     out = torch.einsum("bqhr,rhd->bqhd", o_lat, p["w_uv"].to(o_lat.dtype))
-    B, S, H, Dv = out.shape
-    return nn.linear(out.reshape(B, S, H * Dv), p["wo"])
+    return nn.linear(shd.merge_heads(out, out.shape[2]), p["wo"])
 
 
 def mla_apply(p, cfg, x, positions, cache: Optional[MLACache] = None,
@@ -145,8 +167,9 @@ def mla_apply(p, cfg, x, positions, cache: Optional[MLACache] = None,
                            positions, positions), None
     B, S = x.shape[0], x.shape[1]
     S_max = cache.c_kv.shape[1]
-    cache.c_kv[:, cache_pos:cache_pos + S] = c_kv.to(cache.c_kv.dtype)
-    cache.k_rope[:, cache_pos:cache_pos + S] = k_rope.to(cache.k_rope.dtype)
+    rows = range(cache_pos, cache_pos + S)
+    shd.write_rows(cache.c_kv, 1, rows, c_kv)
+    shd.write_rows(cache.k_rope, 1, rows, k_rope)
     if kv_valid is None:
         kv_valid = torch.full((B,), cache_pos + S, dtype=torch.int32,
                               device=x.device)
@@ -154,6 +177,10 @@ def mla_apply(p, cfg, x, positions, cache: Optional[MLACache] = None,
                           device=x.device)[None].expand(B, S_max)
     kv_pos = torch.where(kv_pos < kv_valid[:, None], kv_pos, -1)
     attend = _mla_attend_absorbed if cfg.mla_absorb else _mla_attend
-    y = attend(p, cfg, q_nope, q_rope, cache.c_kv, cache.k_rope, positions,
-               kv_pos)
+    # the cache splits its sequence over "model" under a sharding policy;
+    # the products over it take whole sequences (an all-gather of the
+    # small latent cache a step; a no-op otherwise)
+    whole = ("batch", None, None)
+    y = attend(p, cfg, q_nope, q_rope, shd.constrain(cache.c_kv, whole),
+               shd.constrain(cache.k_rope, whole), positions, kv_pos)
     return y, cache

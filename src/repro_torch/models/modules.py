@@ -12,10 +12,11 @@ Conventions, as in the reference:
 parameter names are the reference's dict keys, so the functions on
 tensors read `p["w_gate"]` as the JAX code does.
 
-`records_grad` (the kernels' own test, `kernels/_build.py`) chooses the
-route at the model's three kernel sites: the plain, differentiable forms
-while autograd records (as the reference trains, under
-`use_pallas=False`), the CUDA kernels otherwise.
+`plain_forms` (on `records_grad`, the kernels' own test,
+`kernels/_build.py`) chooses the route at the model's three kernel
+sites: the plain, differentiable forms while autograd records (as the
+reference trains, under `use_pallas=False`) and on fake tensors, the
+CUDA kernels otherwise.
 """
 from __future__ import annotations
 
@@ -27,6 +28,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels._build import records_grad  # noqa: F401
+from repro_torch.parallel import sharding as shd
+
+
+def plain_forms(*ts) -> bool:
+    """Whether a kernel site takes the reference's plain form: while
+    autograd records through `ts` (no kernel has a backward), and on fake
+    tensors (the dry-run's shape-only run, which counts the plain forms'
+    products, as the reference's dry-run lowers them under
+    `use_pallas=False`; a DTensor is fake if its shard is)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return records_grad(*ts) or any(
+        isinstance(getattr(t, "_local_tensor", t), FakeTensor) for t in ts)
 
 
 class Params(nn.Module):
@@ -93,15 +106,22 @@ def dense_init(generator: torch.Generator, d_in: int, d_out,
     return truncated_normal(generator, (d_in, *d_out), std, dtype)
 
 
+def _product(x, w):
+    """x [..., d_in] @ w [d_in, *rest] -> [..., *rest]."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
+                                                     *w.shape[1:])
+
+
 def linear(x, w, b=None):
     """x [..., d_in] @ w [d_in, *rest] -> [..., *rest]; w is cast to
     x's dtype at use, as in the reference."""
     w = w.to(x.dtype)
-    rest = w.shape[1:]
     if w.ndim == 2:
         y = x @ w                  # also takes the head's transposed view
+    elif shd.is_dtensor(w) and shd.active_mesh() is not None:
+        y = shd.local_linear(x, w, _product)
     else:
-        y = (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *rest)
+        y = _product(x, w)
     if b is not None:
         y = y + b.to(x.dtype)
     return y
@@ -190,7 +210,17 @@ def conv1d_init(generator: torch.Generator, width: int, channels: int):
 
 
 def conv1d_apply(p, x):
-    """Causal depthwise conv. x [B, S, C] -> [B, S, C]."""
+    """Causal depthwise conv. x [B, S, C] -> [B, S, C]. Under a sharding
+    policy each rank convolves its batch and channel shard, the sequence
+    whole (`parallel/sharding.py::local_call`)."""
+    if shd.is_dtensor(x) and shd.active_mesh() is not None:
+        bat = shd.axis_for("batch", x.shape[0])
+        ch = shd.head_axis(bat, x.shape[2])
+        return shd.local_call(lambda x, w, b: conv1d_apply({"w": w, "b": b},
+                                                           x),
+                              (x, p["w"], p["b"]),
+                              ((bat, None, ch), (None, ch), (ch,)),
+                              ((bat, None, ch),))
     w = p["w"].to(x.dtype)                        # [W, C]
     width = w.shape[0]
     pad = F.pad(x, (0, 0, width - 1, 0))

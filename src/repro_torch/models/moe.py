@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import modules as nn
+from repro_torch.parallel import sharding as shd
 
 
 def moe_init(generator: torch.Generator, cfg):
@@ -53,18 +54,35 @@ def _expert_stack(generator, e, d_in, d_out):
                                1.0 / math.sqrt(d_in))
 
 
+def _sorted_topk(probs, k: int):
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return w[..., :k], idx[..., :k]
+
+
 def router_topk(logits, k: int) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """logits [..., E] -> (weights [..., k] fp32, idx [..., k], aux_loss).
     Leading dims may be (G, Tl)."""
     probs = torch.softmax(logits.float(), dim=-1)
-    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    w, idx = w[..., :k], idx[..., :k]
+    # the sort runs on each rank's rows (DTensor has no rule for it)
+    rows = (shd.axis_for("batch", probs.shape[0]),) + (None,) * (
+        probs.ndim - 1)
+    w, idx = shd.local_call(lambda pr: _sorted_topk(pr, k), (probs,),
+                            (rows,), (rows, rows))
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     # Switch-style load-balance aux loss
     E = logits.shape[-1]
-    me = probs.reshape(-1, E).mean(0)                      # mean prob per e
-    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / idx.numel()
+    if shd.is_dtensor(idx):
+        # mean prob and choices per expert, reduced over the ranks' rows
+        # (a DTensor cannot flatten the sharded leading dims)
+        me = probs.mean(dim=tuple(range(probs.ndim - 1)))
+        experts = torch.arange(E, device=idx.device)
+        counts = (idx[..., None] == experts).sum(
+            dim=tuple(range(idx.ndim)))
+    else:
+        me = probs.reshape(-1, E).mean(0)                  # mean prob per e
+        counts = torch.bincount(idx.reshape(-1), minlength=E)
+    ce = counts.float() / idx.numel()
     aux = E * torch.sum(me * ce)
     return w, idx, aux
 
@@ -96,6 +114,51 @@ def dispatch(idx, n_experts: int, cap: int):
     return order, se, keep, dest
 
 
+def _pack(xt, idx, w, E: int, C: int):
+    """Sort a group's (token, choice) pairs by expert and pack the kept
+    ones into h [G, E, C, D]; also returns the pairs' slots, kept flags,
+    gate weights in xt's dtype and sort permutation, each [G, Tl*k]."""
+    G, Tl, D = xt.shape
+    K = idx.shape[-1]
+    order, se, keep, dest = dispatch(idx, E, C)
+    stok = torch.div(order, K, rounding_mode="floor")      # token of a pair
+    sw = torch.gather(w.reshape(G, Tl * K).to(xt.dtype), 1, order)
+    gidx = torch.arange(G, device=xt.device)[:, None]
+
+    # kept pairs own their slots; a dropped pair, which adds zeros to its
+    # expert's slot 0 in the reference, writes a spare row instead
+    buf = torch.zeros((G, E * C + 1, D), dtype=xt.dtype, device=xt.device)
+    buf[gidx, torch.where(keep, dest, E * C)] = xt[gidx, stok]
+    return buf[:, :E * C].reshape(G, E, C, D), dest, keep, sw, order
+
+
+def _experts(h, w_gate, w_up, w_down):
+    """The expert SwiGLU over packed slots h [G, E, C, D] -> [G, E, C, D]:
+    three batched products over the expert axis."""
+    g = torch.einsum("gecd,edf->gecf", h, w_gate)
+    u = torch.einsum("gecd,edf->gecf", h, w_up)
+    return torch.einsum("gecf,efd->gecd", F.silu(g) * u, w_down)
+
+
+def _combine(o, dest, keep, sw, order, K: int):
+    """The experts' outputs o [G, E*C, D] back to their tokens (k pairs
+    each), weighted by the gates: y [G, Tl, D]."""
+    G, n_pairs = order.shape
+    gidx = torch.arange(G, device=o.device)[:, None]
+    contrib = o[gidx, dest] * (sw * keep)[..., None]       # sorted order
+    # back to [G, Tl, k] by the inverse permutation; a token's pairs in
+    # ascending sorted position are its experts in ascending order
+    inv = torch.empty_like(order)
+    inv.scatter_(1, order, torch.arange(n_pairs, device=o.device)
+                 .expand(G, n_pairs))
+    spos = torch.sort(inv.reshape(G, n_pairs // K, K), dim=-1).values
+    per_tok = contrib[gidx[..., None], spos]               # [G, Tl, k, D]
+    y = per_tok[:, :, 0]
+    for j in range(1, K):                                  # reference order
+        y = y + per_tok[:, :, j]
+    return y
+
+
 def moe_apply(p, cfg, x):
     """x [B, S, D] -> (y, aux_loss).
 
@@ -114,34 +177,27 @@ def moe_apply(p, cfg, x):
     w, idx, aux = router_topk(nn.linear(xt, p["router"]), K)
     C = capacity(cfg, Tl)
 
-    order, se, keep, dest = dispatch(idx, E, C)
-    stok = torch.div(order, K, rounding_mode="floor")      # token of a pair
-    sw = torch.gather(w.reshape(G, Tl * K).to(x.dtype), 1, order)
-    gidx = torch.arange(G, device=x.device)[:, None]
+    # the dispatch's sorts, gathers and scatters run on each rank's
+    # groups (DTensor has no rules for them)
+    groups = (shd.axis_for("batch", G), None, None)
+    h, dest, keep, sw, order = shd.local_call(
+        lambda xt, idx, w: _pack(xt, idx, w, E, C), (xt, idx, w),
+        (groups, groups, groups), (groups + (None,),) + (groups[:2],) * 4)
+    if G > 1:
+        # pin the EP layout: token groups on DP axes, experts on "model"
+        h = shd.constrain(h, ("batch", "model", None, None))
 
-    # kept pairs own their slots; a dropped pair, which adds zeros to its
-    # expert's slot 0 in the reference, writes a spare row instead
-    buf = torch.zeros((G, E * C + 1, D), dtype=x.dtype, device=x.device)
-    buf[gidx, torch.where(keep, dest, E * C)] = xt[gidx, stok]
-    h = buf[:, :E * C].reshape(G, E, C, D)
-
-    g = torch.einsum("gecd,edf->gecf", h, p["w_gate"].to(x.dtype))
-    u = torch.einsum("gecd,edf->gecf", h, p["w_up"].to(x.dtype))
-    o = torch.einsum("gecf,efd->gecd", F.silu(g) * u,
-                     p["w_down"].to(x.dtype))
+    # the expert SwiGLU on each rank's experts (split over "model") and
+    # groups; the expert weights are gathered over the FSDP axis
+    experts = (groups[0], shd.head_axis(groups[0], E), None, None)
+    weights = (experts[1], None, None)
+    o = shd.local_call(
+        _experts, (h, *(p[k].to(x.dtype) for k in ("w_gate", "w_up",
+                                                    "w_down"))),
+        (experts,) + (weights,) * 3, (experts,))
     o = o.reshape(G, E * C, D)
-
-    contrib = o[gidx, dest] * (sw * keep)[..., None]       # sorted order
-    # back to [G, Tl, k] by the inverse permutation; a token's pairs in
-    # ascending sorted position are its experts in ascending order
-    inv = torch.empty_like(order)
-    inv.scatter_(1, order, torch.arange(Tl * K, device=x.device)
-                 .expand(G, Tl * K))
-    spos = torch.sort(inv.reshape(G, Tl, K), dim=-1).values
-    per_tok = contrib[gidx[..., None], spos]               # [G, Tl, k, D]
-    y = per_tok[:, :, 0]
-    for j in range(1, K):                                  # reference order
-        y = y + per_tok[:, :, j]
+    y = shd.local_call(lambda *t: _combine(*t, K), (o, dest, keep, sw, order),
+                       (groups,) + (groups[:2],) * 4, (groups,))
 
     y = y.reshape(T, D)
     if mc.n_shared:

@@ -12,11 +12,13 @@ RG-LRU recurrence (per channel):
 Scoring and a prefill that carries state both run the recurrence through
 `kernels/rg_lru` (the CUDA kernel on the GPU, its plain sequential version
 on the CPU): a carried h folds into step 0, as the reference's `_scan`
-does, and the scan then starts from zero. While autograd records
-(`modules.records_grad`) both run the reference's `_scan`, a log-depth
-associative scan, on every device, as the reference trains under
-`use_pallas=False`: the kernel has no backward. Decode carries h (and the conv
-window) in `RGLRUState`, as the reference does.
+does, and the scan then starts from zero. While autograd records, and
+on fake tensors (`modules.plain_forms`), both run the reference's
+`_scan`, a log-depth associative scan, on every device, as the reference
+trains under `use_pallas=False`: the kernel has no backward. Under a
+sharding policy the kernel runs on each rank's batch and channel shard
+(`_kernel_scan`). Decode carries h (and the conv window) in `RGLRUState`,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rg_lru import ops as rg_ops
+from repro_torch.parallel import sharding as shd
 from repro_torch.models import modules as nn
 
 
@@ -108,11 +111,35 @@ def _scan(a, bx, h0=None):
     """The reference's `_scan`: h_t = a_t h_{t-1} + bx_t along axis 1 by an
     associative scan in fp32, differentiable, with a carried h0 folded
     into step 0. The model runs it while autograd records; the kernel
-    (and its sequential plain version) otherwise."""
+    (and its sequential plain version) otherwise. Under a sharding policy
+    each rank scans its batch and channel shard."""
+    if shd.is_dtensor(a) and shd.active_mesh() is not None:
+        bat = shd.axis_for("batch", a.shape[0])
+        spec = (bat, None, shd.head_axis(bat, a.shape[2]))
+        return shd.local_call(_scan, (a, bx, h0),
+                              (spec, spec, spec[::2]), (spec,))
     if h0 is not None:
         bx = torch.cat([bx[:, :1] + a[:, :1] * h0[:, None], bx[:, 1:]],
                        dim=1)
     return _assoc_scan(a, bx)[1]
+
+
+def _kernel_scan(a, bx, h0=None):
+    """The recurrence by the kernel (its sequential plain version on the
+    CPU), each rank on its batch and channel shard; a carry h0 is folded
+    into step 0 first (two rounded operations, as the reference's
+    `_scan`; bx is the caller's own, so in place), then the scan runs
+    from zero: fmul(a_0, 0) + bx_0' is bx_0', so h equals the sequential
+    recurrence from h0."""
+    def scan(a, bx, h0):
+        if h0 is not None:
+            bx[:, 0] += a[:, 0] * h0.float()
+        return rg_ops.rg_lru_scan(a, bx)
+
+    bat = shd.axis_for("batch", a.shape[0])
+    spec = (bat, None, shd.head_axis(bat, a.shape[2]))
+    return shd.local_call(scan, (a, bx, h0), (spec, spec, spec[::2]),
+                          (spec,))
 
 
 def rglru_apply(p, cfg, x, state: Optional[RGLRUState] = None):
@@ -123,8 +150,8 @@ def rglru_apply(p, cfg, x, state: Optional[RGLRUState] = None):
     if state is None:
         u = nn.conv1d_apply(p["conv"], u)
         a, bx = _gates(p, cfg, u)
-        h = (_scan(a, bx) if nn.records_grad(a, bx)
-             else rg_ops.rg_lru_scan(a, bx))
+        h = (_scan(a, bx) if nn.plain_forms(a, bx)
+             else _kernel_scan(a, bx))
         new_state = None
     elif x.shape[1] == 1:
         ut, conv_w = nn.conv1d_step(p["conv"], u[:, 0], state.conv)
@@ -135,15 +162,10 @@ def rglru_apply(p, cfg, x, state: Optional[RGLRUState] = None):
         full = torch.cat([state.conv.to(u.dtype), u], dim=1)
         u = nn.conv1d_apply(p["conv"], full)[:, state.conv.shape[1]:]
         a, bx = _gates(p, cfg, u)
-        if nn.records_grad(a, bx, state.h):
+        if nn.plain_forms(a, bx, state.h):
             h = _scan(a, bx, h0=state.h.float())
         else:
-            # fold the carry into step 0 (two rounded operations, as the
-            # reference's `_scan`; bx is this call's own, so in place),
-            # then scan from zero: fmul(a_0, 0) + bx_0' is bx_0', so h
-            # equals the sequential recurrence from state.h
-            bx[:, 0] += a[:, 0] * state.h.float()
-            h = rg_ops.rg_lru_scan(a, bx)
+            h = _kernel_scan(a, bx, state.h)
         new_state = RGLRUState(
             h[:, -1].to(state.h.dtype),
             full[:, -(rc.conv_width - 1):, :].to(state.conv.dtype))

@@ -12,10 +12,12 @@ The stateless path (scoring) runs the scan through `kernels/ssd_scan`
 (the CUDA kernel on the GPU, its plain version on the CPU); a prefill
 that carries state runs the plain chunked form `ssd_chunked` with `h0`,
 and decode carries (conv windows, ssd state) in `SSDState` through
-`ssd_step`, as the reference does. While autograd records
-(`modules.records_grad`) the stateless path runs `ssd_chunked` too, on
-every device, as the reference trains under `use_pallas=False`: the
-kernel has no backward.
+`ssd_step`, as the reference does. While autograd records, and on fake
+tensors (`modules.plain_forms`), the stateless path runs `ssd_chunked`
+too, on every device, as the reference trains under `use_pallas=False`:
+the kernel has no backward. Under a sharding policy the scans and the
+decode step run on each rank's batch and head shard (`_local_scan`,
+`_local_step`).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.parallel import sharding as shd
 from repro_torch.models import modules as nn
 
 
@@ -149,6 +152,39 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, h0=None):
     return y.to(x.dtype), h
 
 
+def _head_specs(x, Bm):
+    """(batch, heads, groups) axes of the SSD's per-rank split: heads over
+    the model axis where they, and the B/C groups unless there is one,
+    divide it (a single group then serves the same heads on every
+    rank)."""
+    H, G = x.shape[-2], Bm.shape[-2]
+    bat = shd.axis_for("batch", x.shape[0])
+    hd = shd.head_axis(bat, H, *(() if G == 1 else (G,)))
+    return bat, hd, None if G == 1 else hd
+
+
+def _local_scan(scan, x, dt, A, Bm, Cm, h0):
+    """`scan(x, dt, A, Bm, Cm, h0)` -> (y, h_last), each rank on its batch
+    and head shard (`_head_specs`)."""
+    bat, hd, g = _head_specs(x, Bm)
+    x_spec, h_spec = (bat, None, hd, None), (bat, hd, None, None)
+    g_spec = (bat, None, g, None)
+    return shd.local_call(
+        scan, (x, dt, A, Bm, Cm, h0),
+        (x_spec, x_spec[:3], (hd,), g_spec, g_spec, h_spec),
+        (x_spec, h_spec))
+
+
+def _local_step(x_t, dt_t, A, B_t, C_t, h):
+    """`ssd_step` on each rank's batch and head shard."""
+    bat, hd, g = _head_specs(x_t, B_t)
+    h_spec = (bat, hd, None, None)
+    return shd.local_call(
+        ssd_step, (x_t, dt_t, A, B_t, C_t, h),
+        ((bat, hd, None), (bat, hd), (hd,), (bat, g, None), (bat, g, None),
+         h_spec), ((bat, hd, None), h_spec))
+
+
 def ssd_step(x_t, dt_t, A, B_t, C_t, h):
     """Single decode step. x_t [B,H,P], dt_t [B,H], B_t/C_t [B,G,N],
     h [B,H,N,P] -> (y [B,H,P] in x_t's dtype, h' fp32)."""
@@ -189,19 +225,23 @@ def ssd_apply(p, cfg, x, state: Optional[SSDState] = None):
             Bc, wb = warm(p["conv_B"], Bm, state.conv_B)
             Cc, wc = warm(p["conv_C"], Cm, state.conv_C)
             h0 = state.h
-        xh = F.silu(xs_c).reshape(B_, S, n_heads, sc.head_dim)
-        Bh = F.silu(Bc).reshape(B_, S, sc.n_groups, sc.d_state)
-        Ch = F.silu(Cc).reshape(B_, S, sc.n_groups, sc.d_state)
+        xh = shd.split_heads(F.silu(xs_c), n_heads)
+        Bh = shd.split_heads(F.silu(Bc), sc.n_groups)
+        Ch = shd.split_heads(F.silu(Cc), sc.n_groups)
         dth = dt.reshape(B_, S, n_heads)
         qc = min(sc.chunk, S)
         while S % qc:
             qc //= 2
-        if state is None and not nn.records_grad(xh, dth, A, Bh, Ch):
-            y, h_last = ssd_ops.ssd(xh, dth, A, Bh, Ch, chunk=qc)
-        else:  # a carried state, or training: the plain chunked form
-            y, h_last = ssd_chunked(xh, dth, A, Bh, Ch, chunk=qc, h0=h0)
+        kernel = state is None and not nn.plain_forms(xh, dth, A, Bh, Ch)
+
+        def scan(x, dt, A, Bm, Cm, h0):
+            if kernel:
+                return ssd_ops.ssd(x, dt, A, Bm, Cm, chunk=qc)
+            # a carried state, or training: the plain chunked form
+            return ssd_chunked(x, dt, A, Bm, Cm, chunk=qc, h0=h0)
+        y, h_last = _local_scan(scan, xh, dth, A, Bh, Ch, h0)
         y = y + xh * p["D"].to(y.dtype)[None, None, :, None]
-        y = y.reshape(B_, S, d_inner)
+        y = shd.merge_heads(y, n_heads)
         new_state = None
         if state is not None:
             new_state = SSDState(h_last, wx.to(state.conv_x.dtype),
@@ -211,13 +251,13 @@ def ssd_apply(p, cfg, x, state: Optional[SSDState] = None):
         xt, wx = nn.conv1d_step(p["conv_x"], xs[:, 0], state.conv_x)
         Bt, wb = nn.conv1d_step(p["conv_B"], Bm[:, 0], state.conv_B)
         Ct, wc = nn.conv1d_step(p["conv_C"], Cm[:, 0], state.conv_C)
-        xh = F.silu(xt).reshape(B_, n_heads, sc.head_dim)
-        y, h = ssd_step(
+        xh = shd.split_heads(F.silu(xt), n_heads)
+        y, h = _local_step(
             xh, dt.reshape(B_, 1, n_heads)[:, 0], A,
-            F.silu(Bt).reshape(B_, sc.n_groups, sc.d_state),
-            F.silu(Ct).reshape(B_, sc.n_groups, sc.d_state), state.h)
+            shd.split_heads(F.silu(Bt), sc.n_groups),
+            shd.split_heads(F.silu(Ct), sc.n_groups), state.h)
         y = y + xh * p["D"].to(y.dtype)[None, :, None]
-        y = y.reshape(B_, 1, d_inner)
+        y = shd.merge_heads(y[:, None], n_heads)
         new_state = SSDState(h, wx.to(state.conv_x.dtype),
                              wb.to(state.conv_B.dtype),
                              wc.to(state.conv_C.dtype))

@@ -17,8 +17,11 @@ of width `d_ff` and the others a MoE MLP, whose aux losses `stack_apply`
 sums in fp32 in layer order. While autograd records, each block runs
 under `_remat` at the reference's places: `cfg.remat` "full" recomputes
 the block in the backward, "dots" keeps its matrix products' outputs and
-recomputes the rest, "none" keeps everything. Sharding constraints have
-no counterpart on one device.
+recomputes the rest, "none" keeps everything. Sharding constraints sit at
+the reference's places: the residual stream after each block's adds
+is pinned to (batch, seq) by `parallel/sharding.py::constrain`, which
+redistributes a DTensor under a sharding policy and does nothing
+otherwise.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention, mla, moe, rglru, ssd
 from repro_torch.models import modules as nn
+from repro_torch.parallel import sharding as shd
 
 
 def _dense_kind(cfg) -> str:
@@ -67,7 +71,7 @@ def block_apply(p, cfg, kind: str, x, positions, prefix_len=None,
     """One residual block. Returns (x, new_cache, aux_loss): the MoE MLP's
     fp32 aux loss, 0.0 for every other block."""
     aux = 0.0
-    h = nn.rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = _gather_seq(nn.rms_norm(x, p["ln1"], cfg.norm_eps))
     if kind == "attn" and cfg.attn_impl == "mla":
         y, new_cache = mla.mla_apply(p["attn"], cfg, h, positions,
                                      cache=cache, cache_pos=cache_pos,
@@ -82,18 +86,39 @@ def block_apply(p, cfg, kind: str, x, positions, prefix_len=None,
         y, new_cache = rglru.rglru_apply(p["attn"], cfg, h, state=cache)
     elif kind == "ssd":
         y, new_cache = ssd.ssd_apply(p["attn"], cfg, h, state=cache)
-        return x + y.to(x.dtype), new_cache, aux
+        return _residual(x + _residual(y.to(x.dtype))), new_cache, aux
     else:
         raise ValueError(kind)
-    x = x + y.to(x.dtype)
+    x = _residual(x + _residual(y.to(x.dtype)))
     if "mlp" in p:
-        h2 = nn.rms_norm(x, p["ln2"], cfg.norm_eps)
+        h2 = _gather_seq(nn.rms_norm(x, p["ln2"], cfg.norm_eps))
         if "router" in p["mlp"]:
             y2, aux = moe.moe_apply(p["mlp"], cfg, h2)
         else:
             y2 = nn.mlp_apply(p["mlp"], h2, _dense_kind(cfg))
-        x = x + y2.to(x.dtype)
+        x = _residual(x + _residual(y2.to(x.dtype)))
     return x, new_cache, aux
+
+
+def _gather_seq(h):
+    """A block's normalised input whole along the sequence (batch still
+    split): under sequence parallelism the residual stream is split over
+    "model" along it, and the block's products take whole sequences, as
+    Megatron's all-gather before the column-parallel layers (DTensor
+    cannot flatten a batch and a sequence that are both split). A no-op
+    otherwise."""
+    return shd.constrain(h, ("batch", None, None))
+
+
+def _residual(x):
+    """The residual stream, and a block's output before it is added to
+    it, pinned to (batch, seq) under a sharding policy
+    (`parallel/sharding.py::constrain`; a no-op without one): a partial
+    sum over "model" is reduced there (scattered along the sequence
+    under sequence parallelism, as Megatron's reduce-scatter), so the
+    add's gradient comes back in the layout the block's products
+    take."""
+    return shd.constrain(x, ("batch", "seq", None))
 
 
 # ----------------------------- stack init ----------------------------------

@@ -13,9 +13,10 @@ pattern slot's layers on a group axis: the port's layers of one slot
 (`convert.reference_leaf`). The max is exact in any order, so the values
 are the reference's bit for bit.
 
-The reference's `compressed_psum`, the int8 all-reduce itself, needs a
-process group across cards: it waits for the sharding slice (ROADMAP
-queue 1 item 8b).
+`compressed_psum(x, group)` is the explicit int8 all-reduce over a
+process group: quantise locally, take the largest scale of the group,
+renormalise each rank's quanta to it, sum them as int32 and rescale (the
+wire format is int32, as in the reference's `psum`).
 """
 from __future__ import annotations
 
@@ -58,3 +59,17 @@ def fake_requantize(grads):
         q, s = _q8(x.float(), amax[reference_leaf(k)])
         return (q.float() * s).to(x.dtype)
     return {k: f(k, x) for k, x in g.items()}
+
+
+def compressed_psum(x, group=None):
+    """int8-compressed sum of x over the ranks of `group` (default: the
+    whole world), the reference's `compressed_psum` with a process group
+    in place of a shard_map axis. Returns fp32."""
+    import torch.distributed as dist
+    q, s = _q8(x.float())
+    s_max = s.clone()
+    dist.all_reduce(s_max, op=dist.ReduceOp.MAX, group=group)
+    # renormalize local quanta to the common scale before summing
+    total = torch.round(q.float() * (s / s_max)).to(torch.int32)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    return total.float() * s_max

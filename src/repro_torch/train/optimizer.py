@@ -86,10 +86,11 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def adamw_init(params, keep_master: bool = False) -> AdamWState:
-    """Zero fp32 moments beside every parameter, on its device; with
-    `keep_master`, fp32 copies of the parameters as masters."""
+    """Zero fp32 moments beside every parameter, on its device (and its
+    placements, for a DTensor); with `keep_master`, fp32 copies of the
+    parameters as masters."""
     p = named(params)
-    zeros = {k: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+    zeros = {k: torch.zeros_like(t, dtype=torch.float32)
              for k, t in p.items()}
     master = ({k: t.detach().float().clone() for k, t in p.items()}
               if keep_master else None)

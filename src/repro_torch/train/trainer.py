@@ -1,5 +1,5 @@
-"""Fault-tolerant training loop on one device, on the JAX package's
-`train/trainer.py`.
+"""Fault-tolerant training loop, on one device or over a device mesh, on
+the JAX package's `train/trainer.py`.
 
 As in the reference:
   * checkpoint/restart: async atomic checkpoints every `ckpt_every`
@@ -17,8 +17,11 @@ As in the reference:
 
 The state is the model (`lm.LM`, fp32 at rest, gradients on) and its
 `AdamWState`; both are updated in place, and a restore fills the model
-in place. The re-mesh of an elastic restart waits for the sharding slice
-(ROADMAP queue 1 item 8b): one device here.
+in place. With a `mesh`, the state lives as DTensors on `param_spec`'s
+placements and the step is `train_step.make_sharded_train_step`; a
+restore puts the checkpoint (saved whole) on the placements of the
+trainer's *current* mesh and rebuilds the step: the reference's elastic
+re-mesh, since a restart may bring another mesh (set `trainer.mesh`).
 """
 from __future__ import annotations
 
@@ -87,13 +90,14 @@ class DASGate:
 
 class Trainer:
     def __init__(self, cfg, model_cfg, opt_cfg: optim.AdamWConfig,
-                 data: Iterator, seed: int = 0, device="cuda"):
+                 data: Iterator, seed: int = 0, device="cuda", mesh=None):
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.opt_cfg = opt_cfg
         self.data = data
         self.seed = seed
         self.device = resolve(device)
+        self.mesh = mesh
         self.ckpter = ckpt.AsyncCheckpointer(cfg.ckpt_dir)
         self.gate = DASGate()
         self.inject_failure_at: Optional[int] = None
@@ -105,17 +109,23 @@ class Trainer:
     # -- setup ---------------------------------------------------------------
     def init_state(self):
         """The model drawn from `seed` on a CPU generator, then moved to
-        the device (so every device starts from the same weights), with
-        gradients on, and zero AdamW moments."""
+        the device (so every device and every layout starts from the same
+        weights), with gradients on, and zero AdamW moments; with a mesh,
+        on `param_spec`'s placements."""
         gen = torch.Generator().manual_seed(self.seed)
         params = lm.lm_init(self.model_cfg, gen, device="cpu")
         params.to(self.device).requires_grad_(True)
+        if self.mesh is not None:
+            ts.place_state(params, None, self.model_cfg, self.mesh)
         return params, optim.adamw_init(params)
 
     def _compile(self):
-        return ts.make_train_step(
-            self.model_cfg, self.opt_cfg, microbatch=self.cfg.microbatch,
-            grad_compression=self.cfg.grad_compression)
+        kw = dict(microbatch=self.cfg.microbatch,
+                  grad_compression=self.cfg.grad_compression)
+        if self.mesh is None:
+            return ts.make_train_step(self.model_cfg, self.opt_cfg, **kw)
+        return ts.make_sharded_train_step(self.model_cfg, self.opt_cfg,
+                                          self.mesh, **kw)[0]
 
     # -- main loop -----------------------------------------------------------
     def fit(self, resume: bool = True) -> Dict[str, Any]:
@@ -204,8 +214,12 @@ class Trainer:
 
     def _restore(self, like):
         """The latest checkpoint: the model filled in place, the optimizer
-        state's tensors on the trainer's device."""
+        state's tensors on the trainer's device (and, with a mesh, on the
+        placements of `like`, rebuilt here if the mesh has changed)."""
         t0 = time.perf_counter()
+        first = next(like[0].parameters())
+        if getattr(first, "device_mesh", None) is not self.mesh:
+            like = self.init_state()
         out = ckpt.restore(self.cfg.ckpt_dir, like, device=self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

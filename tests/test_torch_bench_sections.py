@@ -325,7 +325,7 @@ def test_bench_run_writes_its_record(tmp_path, monkeypatch):
     # the plain versions count no launch
     assert set(rec["kernels"]) == set(bench_run.ops.LAUNCHES)
     assert not any(rec["kernels"].values())
-    assert set(rec["not_ported"]) == {"roofline"}
+    assert rec["not_ported"] == {}
     labels = {s["label"] for s in rec["sweeps"]}
     assert {"oracle oracle", "oracle ETF", "grid DAS-EDP"} <= labels
     # every sweep went through the campaign: one chunk each, none reused

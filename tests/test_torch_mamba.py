@@ -121,7 +121,7 @@ def test_registry_config_copy_and_param_shapes():
     cfg = configs.get_config(ARCH)
     ref = jconfigs.get_config(ARCH)
     assert ARCH in configs.ARCH_IDS
-    dropped = {"scan_layers", "shard_strategy", "use_pallas"}
+    dropped = {"scan_layers", "use_pallas"}
     fields = {f.name for f in dataclasses.fields(cfg)}
     ref_values = dataclasses.asdict(ref)
     assert {k: ref_values[k] for k in fields - dropped} \

@@ -279,7 +279,7 @@ def test_ragged_prologue_runs_first():
 def test_registry_and_config_copy():
     cfg = configs.get_config(ARCH)
     ref = jconfigs.get_config(ARCH)
-    dropped = {"scan_layers", "shard_strategy", "use_pallas"}
+    dropped = {"scan_layers", "use_pallas"}
     fields = {f.name for f in dataclasses.fields(cfg)}
     assert fields == {f.name for f in dataclasses.fields(ref)} - dropped
     ref_values = dataclasses.asdict(ref)
@@ -308,10 +308,10 @@ def test_registry_and_config_copy():
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_every_registered_config_is_the_references(arch):
     """All ten configs of the reference's registry, field by field, less
-    the three sharding and kernel fields the port drops."""
+    the layer-scan and kernel fields the port drops."""
     assert configs.ARCH_IDS == jconfigs.ARCH_IDS
     cfg, ref = configs.get_config(arch), jconfigs.get_config(arch)
-    dropped = {"scan_layers", "shard_strategy", "use_pallas"}
+    dropped = {"scan_layers", "use_pallas"}
     fields = {f.name for f in dataclasses.fields(cfg)}
     assert fields == {f.name for f in dataclasses.fields(ref)} - dropped
     ref_values = dataclasses.asdict(ref)
