@@ -8,7 +8,9 @@ kernel to its plain PyTorch version on the card, and drives the port's
 paths through them:
 
   * the DAS scheduling pipeline (summary40 at the benchmark's full size:
-    40 mixes x 14 rates, 60 frames per workload, 19 PEs), checked against
+    40 mixes x 14 rates, 60 frames per workload, 19 PEs, at the chunk
+    size the autotune's probe picks from an empty cache, which a second
+    resolution must read back from the cache file), checked against
     `benchmarks/BENCH_sweep.json`, its super-steps and launches counted,
     and the card's schedules against the CPU's; on the card the simulator
     replays each block of super-steps from one CUDA graph, which phase 4
@@ -25,7 +27,9 @@ paths through them:
     record; phase 5d runs the campaign layer on the card (the
     kill-and-resume smoke test, campaign against `run_batch` bit for
     bit, packed, resumed and under fault plans, a real CUDA
-    out-of-memory and a watchdog trip inside a graph capture, the
+    out-of-memory (the retry starting with the failed attempt's memory
+    freed, a cyclic collection inside each of its captures) and a
+    watchdog trip inside a graph capture, the
     scenario split, `bench.run --resume` twice) and reads the idle
     card's power draw;
   * RecurrentGemma-9B inference at full width and depth (38 layers,
@@ -72,7 +76,13 @@ paths through them:
     outputs in two of its layers held to the plain version on the same
     inputs, where the planted faults must fail. Training takes the plain
     forms and launches no kernel (asserted); the held-out loss and
-    logits launch the SSD kernel 48 times each.
+    logits launch the SSD kernel 48 times each;
+  * the sharded steps (phase 14): Mamba-2's train step and
+    RecurrentGemma's prefill and decode on a 1 x 1 NCCL mesh against one
+    device, the dry-run of three production cells on a fake 16 x 16
+    group (roofline terms and each card's memory), and the dry-run's
+    count of the Mamba-2 step's memory, held within 15% of the peak the
+    card measured for it.
 
 Phase 2 also builds three planted faults of the bf16 SSD kernel and
 three of the RG-LRU scan's TMA ring (copies of their sources with one
@@ -124,6 +134,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 MAIN_S = 560            # scenarios in one oracle sweep (40 mixes x 14 rates)
+# the chunk-size autotune's cache, and the most its probe may take
+AUTOTUNE_DIR = ROOT / "build" / "repro_torch" / "autotune"
+PROBE_S = 30.0
 TOL_DERIVED = 1e-3      # the four ratios against BENCH_sweep.json
 SUMMARY40_STEPS = 14208  # super-steps of the eight summary40 sweeps
 TOL_AGG = 1e-6          # card vs CPU float aggregates (reduction order)
@@ -1326,6 +1339,42 @@ def _eager_vs_graph() -> dict:
             "steps": runs[0][2]}
 
 
+def _use_autotune_dir() -> None:
+    """Every `Bench` of this run keeps its chunk-size autotune cache in
+    the checkout's `build/`, and none is pinned by `REPRO_BENCH_BATCH`."""
+    import os
+    os.environ["REPRO_BENCH_CACHE_DIR"] = str(AUTOTUNE_DIR)
+    os.environ.pop("REPRO_BENCH_BATCH", None)
+
+
+def _autotune() -> dict:
+    """The chunk-size autotune on the card from an empty cache: the probe
+    runs (its `#` line gives each candidate's seconds) and stores its
+    pick; resolved again with the in-process cache cleared, the pick
+    comes from the file. Before the pipeline's launches are counted: the
+    probe's sweeps launch `avail_rows`."""
+    from repro_torch.bench import common
+    shutil.rmtree(AUTOTUNE_DIR, ignore_errors=True)
+    _use_autotune_dir()
+    common._autotuned.cache_clear()
+    t0 = time.perf_counter()
+    batch, source = common.resolve_batch_size("cuda")
+    probe_s = time.perf_counter() - t0
+    common._autotuned.cache_clear()
+    again = common.resolve_batch_size("cuda")
+    cache = json.loads((AUTOTUNE_DIR / "autotune.json").read_text())
+    log(f"[4 das] chunk-size autotune: probe of "
+        f"{common._BATCH_CANDIDATES['cuda']} on "
+        f"{len(common._probe_cells('cuda'))} scenarios at "
+        f"{common._PROBE_FRAMES} frames in {probe_s:.2f}s (limit "
+        f"{PROBE_S:.0f}s), chose {batch} ({source}); resolved again with "
+        f"the in-process cache cleared: {again}; cache file {cache}")
+    if source != "probe" or again != (batch, "cache") or probe_s > PROBE_S:
+        raise AssertionError(f"autotune: {batch} ({source}) in {probe_s}s, "
+                             f"then {again}")
+    return {"batch": batch, "probe_s": probe_s}
+
+
 def phase_main() -> dict:
     import torch
     from repro_torch.bench import summary40
@@ -1333,6 +1382,10 @@ def phase_main() -> dict:
     ref = json.loads((ROOT / "benchmarks" / "BENCH_sweep.json")
                      .read_text())["derived"]
     turns = _eager_vs_graph()
+    tuned = _autotune()
+    if tuned["batch"] < MAIN_S:
+        raise AssertionError(f"the autotune chose {tuned['batch']}, less "
+                             f"than one chunk a sweep ({MAIN_S})")
     t0 = time.perf_counter()
     ops.reset_launches()
     out = summary40.run(device="cuda")
@@ -1375,8 +1428,10 @@ def phase_main() -> dict:
     log(f"[4 das] oracle samples {out['n_samples']} (reference 420168); "
         f"{out['n_cells']} cells; launches {launches}; "
         f"{steps} super-steps in {sweep_s:.2f}s of sweeps = "
-        f"{sweep_s * 1e3 / steps:.3f} ms/step; pipeline {wall:.1f}s")
-    return {"launches": launches, "out": out, "turns": turns}
+        f"{sweep_s * 1e3 / steps:.3f} ms/step; pipeline {wall:.1f}s at "
+        f"the autotuned chunk of {tuned['batch']}")
+    return {"launches": launches, "out": out, "turns": turns,
+            "autotune": tuned}
 
 
 # ---------------------------------------------------------------------------
@@ -1625,8 +1680,14 @@ def phase_sections() -> dict:
                  "REPRO_BENCH_CAMPAIGN_DIR", "REPRO_BENCH_WATCHDOG_S",
                  "REPRO_BENCH_STEP_BUDGET", "REPRO_BENCH_PACK"):
         os.environ.pop(knob, None)     # the benchmark's own size
+    _use_autotune_dir()
     record = bench_run.main(["--device", "cuda", "--json",
                              str(BENCH_RUN_JSON)])
+    env = record["env"]
+    if env["batch_size_source"] != "cache" or env["batch_size"] < MAIN_S:
+        raise AssertionError(f"5c chunk size {env['batch_size']} from "
+                             f"{env['batch_size_source']}: not phase 4's "
+                             "cached pick of one chunk a sweep")
     ref = json.loads((ROOT / "benchmarks" / "BENCH_sweep.json")
                      .read_text())["sections"]
     for name, _, _ in bench_run.SECTIONS:
@@ -1741,6 +1802,7 @@ def _kill_resume() -> dict:
 
 
 def phase_campaign(trees: dict, sections: dict) -> dict:
+    import gc
     import shutil
     import torch
     from repro_torch.bench import faults as fault_bench
@@ -1819,19 +1881,41 @@ def phase_campaign(trees: dict, sections: dict) -> dict:
     # than the card holds while its graph is being captured, after the
     # block has recorded its kernels; classified, the half-recorded graph
     # dropped with its attempt and its recorded launches taken back out
-    # of LAUNCHES, shrunk, finished
+    # of LAUNCHES, shrunk, finished. The retry starts with the failed
+    # attempt's memory freed (`memory_allocated` back to its level before
+    # the attempt), and a cyclic collection inside each of its captures
+    # finds nothing of the failed attempt to destroy there: nothing holds
+    # it in a cycle (`campaign._let_go`), so no capture pauses the
+    # collector
     total = torch.cuda.get_device_properties(0).total_memory
     real_block, real_capture = sim._block, sim._capture
-    hit = {"oom": 0, "held": 0, "recorded": 0, "left": None}
+    real_compute = camp._compute_chunk
+    hit = {"oom": 0, "held": 0, "recorded": 0, "left": None,
+           "collected": 0, "starts": []}
+
+    def collect_in_capture():
+        if torch.cuda.is_current_stream_capturing():
+            hit["collected"] += 1
+            gc.collect()
 
     def oom_block(*a, **kw):
         out = real_block(*a, **kw)
         if torch.cuda.is_current_stream_capturing() and not hit["oom"]:
             hit["oom"] += 1
             hit["recorded"] = ops.LAUNCHES["avail_rows"] - hit["at"]
+            hit["at_oom"] = torch.cuda.memory_allocated()
             torch.empty(total + (1 << 30), dtype=torch.uint8,
                         device="cuda")
+        elif hit["oom"]:
+            collect_in_capture()
         return out
+
+    def measured(*a, **kw):
+        """An attempt (or a shrunk attempt's part) starts: the card's
+        allocated bytes."""
+        torch.cuda.synchronize()
+        hit["starts"].append(torch.cuda.memory_allocated())
+        return real_compute(*a, **kw)
 
     def oom_capture(*a, **kw):
         hit["at"] = ops.LAUNCHES["avail_rows"]
@@ -1842,15 +1926,27 @@ def phase_campaign(trees: dict, sections: dict) -> dict:
             raise
 
     sim._block, sim._capture = oom_block, oom_capture
+    camp._compute_chunk = measured
     try:
         out = camp.run_campaign(sim.MODE_ETF, small, batch_size=8,
                                 device="cuda")
     finally:
         sim._block, sim._capture = real_block, real_capture
+        camp._compute_chunk = real_compute
     st = out.stats
     if not (hit["oom"] == 1 and st["oom_events"] == 1 and st["shrinks"] == 1
-            and st["retries"] == 1):
+            and st["retries"] == 1 and hit["collected"] >= 2
+            and len(hit["starts"]) == 3):
         raise AssertionError(f"5d OOM: {hit} {st}")
+    before, retry_at = hit["starts"][:2]
+    log(f"[5d campaign] allocated on the card: {before} bytes when the "
+        f"failed attempt started, {hit['at_oom']} at its out-of-memory, "
+        f"{retry_at} when the retry started; {hit['collected']} cyclic "
+        "collections inside the retry's captures")
+    if retry_at > before:
+        raise AssertionError(f"5d OOM: the retry started with {retry_at} "
+                             f"bytes allocated, {before} before the failed "
+                             "attempt: its memory was not freed")
     if not (hit["recorded"] > 0 and hit["left"] == 0):
         raise AssertionError(
             f"5d OOM: the failed capture recorded {hit['recorded']} "
@@ -1878,6 +1974,8 @@ def phase_campaign(trees: dict, sections: dict) -> dict:
                 raise AssertionError("5d watchdog: no stop flag was set "
                                      f"within {2 * WATCHDOG_S}s")
             stopped["at"] = time.perf_counter()
+        elif hit["held"]:
+            collect_in_capture()     # the stopped attempt is freed too
         return real_block(*a, **kw)
 
     def counting(*a, **kw):
@@ -1899,7 +1997,7 @@ def phase_campaign(trees: dict, sections: dict) -> dict:
         sim._block, sim._simulate_on = real_block, real_on
     st = out.stats
     if not (hit["held"] == 1 and st["timeouts"] == 1 and st["retries"] == 1
-            and stopped["n"] == 1):
+            and stopped["n"] == 1 and hit["collected"] >= 3):
         raise AssertionError(f"5d watchdog: {hit} {stopped} {st}")
     _same(small_ref, out.result, "5d after a watchdog trip")
     log(f"[5d campaign] watchdog {WATCHDOG_S}s tripped during a graph "
@@ -3030,6 +3128,18 @@ DRYRUN_CELLS = (("deepseek-v2-lite-16b", "train_4k"),
                 ("minicpm3-4b", "decode_32k"))
 DRYRUN_JSON = ROOT / "build" / "repro_torch" / "phase14_dryrun.json"
 DRYRUN_TIMEOUT_S = 600
+# and (a)'s step counted by the dry-run on a fake group of one, as (a)
+# builds it (`make_sharded_train_step`'s defaults: no sequence
+# parallelism): its argument + temp bytes against (a)'s measured peak
+TOL_DRYRUN_MEM = 0.15
+DRYRUN_STEP = ("import json, sys\n"
+               "from repro_torch.launch import dryrun\n"
+               "from repro_torch.launch.shapes import ShapeSpec\n"
+               "spec = ShapeSpec(sys.argv[1], 'train', int(sys.argv[3]),\n"
+               "                 int(sys.argv[2]))\n"
+               "r = dryrun.run_cell('mamba2-780m', spec, mesh_shape=(1, 1),\n"
+               "                    variant={'sequence_parallel': False})\n"
+               "json.dump(r, open(sys.argv[4], 'w'))\n")
 
 
 def _nccl_group():
@@ -3198,10 +3308,13 @@ def _shard_serve(mesh, smi: str) -> dict:
     return {"launches": got[3], "prefill_s": got[1], "prefill_s_one": one[1]}
 
 
-def _dryrun_cells(smi: str) -> dict:
+def _dryrun_cells(smi: str, train: dict) -> dict:
     """(c): the dry-run of the three cells, each in a process of its own
     (a fake process group is process-global), then `bench.run`'s
-    roofline section on their record."""
+    roofline section on their record; beside them, in a process too, the
+    dry-run's count of (a)'s step (Mamba-2 780M, fp32 AdamW, the same
+    batch, on a fake group of one), whose argument + temp bytes must lie
+    within `TOL_DRYRUN_MEM` of the peak (a) measured."""
     import os
     from repro_torch.bench import run as bench_run
     from repro_torch.launch import roofline
@@ -3212,13 +3325,18 @@ def _dryrun_cells(smi: str) -> dict:
             "json.dump(r, open(sys.argv[3], 'w'))\n")
     t0 = time.perf_counter()
     parts = [DRYRUN_JSON.with_suffix(f".{i}.json")
-             for i in range(len(DRYRUN_CELLS))]
+             for i in range(len(DRYRUN_CELLS) + 1)]
+    step_name = f"train_{MAMBA_TRAIN['batch']}x{MAMBA_TRAIN['seq']}"
+    argvs = [["-c", code, a, s, str(part)]
+             for (a, s), part in zip(DRYRUN_CELLS, parts)]
+    argvs.append(["-c", DRYRUN_STEP, step_name, str(MAMBA_TRAIN["batch"]),
+                  str(MAMBA_TRAIN["seq"]), str(parts[-1])])
     procs = [subprocess.Popen(      # one process a cell, side by side
-        [sys.executable, "-c", code, a, s, str(part)],
+        [sys.executable, *argv],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                  CUDA_VISIBLE_DEVICES=""))
-        for (a, s), part in zip(DRYRUN_CELLS, parts)]
+        for argv in argvs]
     outs = []
     try:
         for proc in procs:
@@ -3237,6 +3355,7 @@ def _dryrun_cells(smi: str) -> dict:
             raise AssertionError(f"dry-run exited {proc.returncode}:\n"
                                  f"{out[-4000:]}\n{err[-4000:]}")
     cells = [json.loads(part.read_text()) for part in parts]
+    step = cells.pop()
     DRYRUN_JSON.write_text(json.dumps(cells))
     os.environ["REPRO_DRYRUN_JSON"] = str(DRYRUN_JSON)
     try:
@@ -3253,7 +3372,11 @@ def _dryrun_cells(smi: str) -> dict:
             f"{cell['dot_flops_per_dev']:.4e}, dot bytes/card "
             f"{cell['dot_bytes_per_dev']:.4e}, collective bytes/card "
             f"{cell['collective_bytes']}, argument bytes/card "
-            f"{cell['memory']['argument_size_in_bytes']:.4e}; compute "
+            f"{cell['memory']['argument_size_in_bytes']:.4e}, temp "
+            f"{cell['memory']['temp_size_in_bytes']:.4e}, output "
+            f"{cell['memory']['output_size_in_bytes']:.4e}: "
+            f"{row['mem_gb_per_dev']:.2f} GB a card (argument + temp) of "
+            f"an H100's 80; compute "
             f"{t['compute_s']:.4f}s, memory {t['memory_s']:.4f}s, collective "
             f"{t['collective_s']:.4f}s, bound {t['dominant']} "
             f"{t['step_time_bound_s']:.4f}s, useful {t['useful_ratio']:.3f}, "
@@ -3266,9 +3389,24 @@ def _dryrun_cells(smi: str) -> dict:
                 or not 0 <= t["roofline_fraction"] <= 1.5:
             raise AssertionError(f"dry-run cell {cell['arch']} x "
                                  f"{cell['shape']}: {cell} {t}")
-    log(f"[14 dryrun] {len(cells)} cells in {wall:.1f}s (a process each, "
-        f"side by side) | {smi}")
-    return {"cells": cells, "rows": rows, "wall_s": wall}
+    mem = step["memory"]
+    counted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    gap = counted / train["peak"] - 1
+    log(f"[14 dryrun] (a)'s step counted on a fake group of one "
+        f"({step_name}): argument {mem['argument_size_in_bytes']:.0f} + "
+        f"temp {mem['temp_size_in_bytes']:.0f} = {counted / 2**30:.3f} GiB "
+        f"(output {mem['output_size_in_bytes'] / 2**30:.3f} GiB); (a) "
+        f"measured {train['peak'] / 2**30:.3f} GiB sharded, "
+        f"{train['peak_one'] / 2**30:.3f} GiB on one device "
+        f"(max_memory_allocated): gap {gap:+.2%} (limit "
+        f"{TOL_DRYRUN_MEM:.0%}) | {smi}")
+    if step["status"] != "ok" or not abs(gap) <= TOL_DRYRUN_MEM:
+        raise AssertionError(f"dry-run memory of (a)'s step: {mem}, "
+                             f"measured {train['peak']}")
+    log(f"[14 dryrun] {len(cells) + 1} cells in {wall:.1f}s (a process "
+        f"each, side by side) | {smi}")
+    return {"cells": cells, "rows": rows, "wall_s": wall, "step": step,
+            "step_gap": gap}
 
 
 def phase_shard(smi: str) -> dict:
@@ -3291,7 +3429,7 @@ def phase_shard(smi: str) -> dict:
         if own:
             dist.destroy_process_group()
     t1 = time.perf_counter()
-    dry = _dryrun_cells(smi)
+    dry = _dryrun_cells(smi, train)
     log(f"[14 shard] done: (a)+(b) {t1 - t0:.1f}s, (c) "
         f"{time.perf_counter() - t1:.1f}s")
     return {"launches": serve["launches"], "train": train, "serve": serve,

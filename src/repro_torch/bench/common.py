@@ -21,8 +21,14 @@ GPU run and a CPU cross-check, say) never share results. The sections
 Environment knobs, read at call time as the reference reads them:
   REPRO_BENCH_INSTANCES     frames per workload (default 60)
   REPRO_BENCH_FULL=0        train on the 10 x 8 subset, not 40 x 14
-  REPRO_BENCH_BATCH         scenarios a chunk (unset: one chunk a sweep;
-                            the reference autotunes it, the port does not)
+  REPRO_BENCH_BATCH         scenarios a chunk (bounds peak memory; results
+                            do not depend on it). Unset, `batch_size`
+                            autotunes it once a device: a short timed probe
+                            over a ladder of candidates for the device's
+                            type, its pick kept in an on-disk cache keyed
+                            by device type, card name, device count and
+                            torch version. Delete the cache file to probe
+                            again.
   REPRO_BENCH_DEVICES       devices a chunk is split over (default: every
                             visible card; `simulator._resolve_devices`)
   REPRO_BENCH_CAMPAIGN_DIR  checkpoint the sweeps' chunks into this
@@ -31,15 +37,21 @@ Environment knobs, read at call time as the reference reads them:
   REPRO_BENCH_STEP_BUDGET   per-chunk step budget (default off; a trip
                             retries with an escalated budget)
   REPRO_BENCH_PACK=0        no length-aware chunk packing
+  REPRO_BENCH_CACHE_DIR     the autotune cache's directory (default
+                            ~/.cache/repro_torch; the file is
+                            `autotune.json` in it)
 """
 from __future__ import annotations
 
 import argparse
+import functools
+import json
 import os
 import time
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import classifier as clf
 from repro_torch.core import campaign, das, oracle, simulator as sim
@@ -56,11 +68,11 @@ class Bench:
     """One benchmark pipeline on one device.
 
     `train_mixes` / `train_rates` pick the oracle grid (default: the
-    paper's full 40 mixes x 14 rates). Unless `REPRO_BENCH_BATCH` is
-    set, every sweep is one chunk: the whole grid fits on the card, and
-    a chunk's super-step count is set by its slowest lane, so fewer
-    chunks means fewer super-steps. `campaign_dir` roots the sweeps'
-    chunk checkpoints (None: none are written).
+    paper's full 40 mixes x 14 rates). Every sweep is cut into chunks
+    of `batch_size(device)` scenarios (`REPRO_BENCH_BATCH`, else the
+    autotune's pick; on the card one chunk covers every sweep of the
+    benchmark). `campaign_dir` roots the sweeps' chunk checkpoints
+    (None: none are written).
     """
 
     def __init__(self, device="cuda", n_instances: int = N_INSTANCES,
@@ -97,7 +109,7 @@ class Bench:
         out = campaign.run_campaign(
             mode, stacked, self.params, tree=tree,
             rate_threshold=rate_threshold, plan=plan,
-            batch_size=_env_opt_int("REPRO_BENCH_BATCH"),
+            batch_size=batch_size(self.device),
             device=self.device, checkpoint_dir=self.campaign_dir,
             watchdog_s=_env_opt_float("REPRO_BENCH_WATCHDOG_S"),
             step_budget=_env_opt_int("REPRO_BENCH_STEP_BUDGET"))
@@ -256,6 +268,149 @@ def _env_opt_float(name: str) -> float | None:
     if val <= 0:
         raise ValueError(f"{name}={val} must be positive")
     return val
+
+
+# ---------------------------------------------------------------------------
+# the chunk-size autotune and its cache
+# ---------------------------------------------------------------------------
+# chunk sizes the probe tries, by device type. On the CPU a lane costs its
+# share of every super-step and a chunk runs until its slowest lane
+# retires, so the reference's ladder weighs the two. On the card a
+# super-step takes 1.1-1.4 ms at every width from 32 to 560 scenarios,
+# and a packed chunk runs 1,060-1,700 of them whatever its width, so a
+# sweep's wall time goes with its chunk count and one chunk wins
+# (PERF.md, the chunk-size table: a full-grid sweep takes 2.3-2.6 s in
+# one chunk of 560, 4.6-4.9 s at 256, 6.4-7.0 s at 128, 21-22 s at 32).
+# 1024 is one chunk for every sweep of the benchmark (the largest is 560
+# scenarios); two smaller rungs keep the probe near 11 s on an H100.
+_BATCH_CANDIDATES = {"cpu": (8, 16, 32), "cuda": (128, 256, 1024)}
+_PROBE_FRAMES = 6
+
+
+def _probe_cells(device_type: str) -> List[Tuple[int, int]]:
+    """The probe's (mix, rate) grid: the reference's 8 mixes x 4 rates,
+    and on the card all 40 x 14. A chunk clamps to its sweep, so on 32
+    scenarios every candidate from 32 up is the same single chunk; on 560
+    each of the card's candidates is a chunking of its own."""
+    if device_type == "cuda":
+        return [(m, r) for m in range(40) for r in range(14)]
+    return [(m, r) for m in range(8) for r in (0, 5, 9, 13)]
+
+
+def _autotune_cache_path() -> str:
+    root = os.environ.get("REPRO_BENCH_CACHE_DIR", "").strip() \
+        or os.path.join(os.path.expanduser("~"), ".cache", "repro_torch")
+    return os.path.join(root, "autotune.json")
+
+
+def _autotune_key(device) -> str:
+    """Cache key: what shifts the chunk-size crossover. The card's name
+    stands where the reference has its backend ("cuda" does not tell an
+    H100 from another card), and the probe runs on the device split that
+    the sweeps use, so the device count is part of it."""
+    dev = resolve(device)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    return (f"{dev.type}|{name}|dev{len(sim._resolve_devices(None, dev))}"
+            f"|torch{torch.__version__}")
+
+
+def _autotune_cache_load() -> dict:
+    """Read the autotune cache, deleting it if corrupt (a crash mid-write
+    cannot truncate it, since writes are atomic, but a hand edit can)."""
+    path = _autotune_cache_path()
+    try:
+        with open(path) as f:
+            cache = json.load(f)
+        if not isinstance(cache, dict):
+            raise ValueError("autotune cache is not a JSON object")
+        return cache
+    except FileNotFoundError:
+        return {}
+    except (OSError, ValueError):
+        print(f"# autotune cache {path} unreadable; deleting and re-probing")
+        try:
+            os.remove(path)
+        except OSError:
+            pass
+        return {}
+
+
+def _autotune_cache_store(key: str, value: int) -> None:
+    """Add `key: value` to the cache file, keeping the other entries; a
+    write that fails is reported and the run goes on uncached."""
+    path = _autotune_cache_path()
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        cache = _autotune_cache_load()
+        cache[key] = value
+        campaign.atomic_write_json(path, cache)
+    except OSError as e:
+        print(f"# autotune cache write failed ({e}); continuing uncached")
+
+
+def _probe_sweep_s(stacked, params, batch: int, dev) -> float:
+    """Seconds of one LUT sweep of `stacked` at chunk size `batch`, timed
+    after a warm-up sweep."""
+    sim.run_batch(sim.MODE_LUT, stacked, params, batch_size=batch,
+                  device=dev)
+    t0 = time.perf_counter()
+    np.asarray(sim.to_numpy(sim.run_batch(
+        sim.MODE_LUT, stacked, params, batch_size=batch,
+        device=dev)).avg_exec_us)
+    return time.perf_counter() - t0
+
+
+def _probe_batch_size(device) -> int:
+    """Timed probe: one LUT sweep of the device's probe grid
+    (`_probe_cells`, 6 frames) a candidate, after a warm-up sweep; the
+    fastest wins. Results never depend on the value, only wall time and
+    peak memory do."""
+    dev = resolve(device)
+    cands = _BATCH_CANDIDATES[dev.type]
+    stacked = workloads.default_suite(n_instances=_PROBE_FRAMES) \
+        .build_many(_probe_cells(dev.type))
+    params = sim.make_params(device=dev)
+    t00 = time.time()
+    best, took = None, []
+    for b in cands:
+        dt = _probe_sweep_s(stacked, params, b, dev)
+        took.append(f"{b}: {dt:.3f}s")
+        if best is None or dt < best[1]:
+            best = (b, dt)
+    print(f"# autotuned REPRO_BENCH_BATCH={best[0]} on {dev} "
+          f"({len(cands)} candidates in {time.time() - t00:.0f}s; timed "
+          f"{', '.join(took)})")
+    return best[0]
+
+
+def resolve_batch_size(device="cuda") -> Tuple[int, str]:
+    """(chunk size for every sweep of the benchmark on `device`, where it
+    came from). `REPRO_BENCH_BATCH` wins when set ("env"); otherwise the
+    device's autotuned value, resolved once a process a device: the
+    on-disk cache's entry for `_autotune_key` ("cache"), or on a miss the
+    timed probe, whose pick is stored ("probe"). Corrupt cache files are
+    deleted and probed again; entries of other keys are kept and
+    missed."""
+    if os.environ.get("REPRO_BENCH_BATCH", "").strip():
+        return _env_int("REPRO_BENCH_BATCH", 16), "env"
+    return _autotuned(str(resolve(device)))
+
+
+def batch_size(device="cuda") -> int:
+    """The chunk size of `resolve_batch_size`."""
+    return resolve_batch_size(device)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _autotuned(device: str) -> Tuple[int, str]:
+    key = _autotune_key(device)
+    cached = _autotune_cache_load().get(key)
+    if isinstance(cached, int) and cached > 0:
+        print(f"# autotune cache hit: REPRO_BENCH_BATCH={cached} [{key}]")
+        return cached, "cache"
+    best = _probe_batch_size(device)
+    _autotune_cache_store(key, best)
+    return best, "probe"
 
 
 def env_config() -> Dict:

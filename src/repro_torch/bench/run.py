@@ -13,8 +13,9 @@ without one); every sweep goes through the crash-safe campaign runner.
 write-temp + rename); the same command run again after a crash or a
 SIGKILL resumes from the completed chunks and gives byte-identical
 results. `--json PATH` writes the record atomically: `total_s`, `env`
-(device name, the `nvidia-smi` power limit, torch version, devices
-and chunk size, frames per workload and the training grid), `derived`
+(device name, the `nvidia-smi` power limit, torch version, devices,
+the chunk size and its source: `env`, `cache` or `probe`, frames per
+workload and the training grid), `derived`
 (summary40's five numbers), `campaign` (the campaign counters:
 chunks computed and reused, retries, timeouts, out-of-memory shrinks,
 stall trips, chunk wall times, occupancy; `common.Bench.campaign_stats`),
@@ -95,7 +96,8 @@ def env_record(bench: common.Bench, full_grid: bool) -> dict:
         "cuda": torch.version.cuda,
         "n_devices": len(sim._resolve_devices(None, dev)),
         "bench_devices": os.environ.get("REPRO_BENCH_DEVICES"),
-        "batch_size": common._env_opt_int("REPRO_BENCH_BATCH"),
+        **dict(zip(("batch_size", "batch_size_source"),
+                   common.resolve_batch_size(dev))),
         "campaign_dir": bench.campaign_dir,
         "full_grid": full_grid,
         "n_instances": int(bench.suite.n_instances),
@@ -165,6 +167,8 @@ def main(argv=None) -> dict:
 
     cfg = common.env_config()
     bench = common.bench_from_env(args.device, campaign_dir=args.resume)
+    # the chunk size first: a probe's sweeps are not the sections' launches
+    common.resolve_batch_size(bench.device)
     ops.reset_launches()
     t00 = time.perf_counter()
     results, failures = run_sections(bench, only, args.csv,

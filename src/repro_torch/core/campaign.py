@@ -63,6 +63,7 @@ import json
 import os
 import threading
 import time
+import traceback
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -300,6 +301,29 @@ def _free_device_memory() -> None:
         torch.cuda.empty_cache()
 
 
+def _let_go(exc: BaseException) -> BaseException:
+    """A failed attempt's exception, let go of its attempt.
+
+    A traceback holds the failed frames, and their locals hold the
+    attempt's tensors and its half-captured CUDA graph; some of those
+    frames also hold the exception (the watchdog's box, a future), a
+    cycle that only a collection would free. So the locals of every frame
+    in the traceback, and in those of its cause and context, are cleared:
+    the attempt's memory is freed by reference counting as soon as the
+    caller drops `exc`. Returns a copy without traceback, cause or
+    context, which names the failure (same type and message) for the
+    back-off message and the final `CampaignError`."""
+    seen, e = set(), exc
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        traceback.clear_frames(e.__traceback__)
+        e = e.__cause__ or e.__context__
+    try:
+        return type(exc)(*exc.args)
+    except Exception:  # noqa: BLE001 — a type that takes other arguments
+        return CampaignError(f"{type(exc).__name__}: {exc}")
+
+
 def _call_with_watchdog(fn: Callable, timeout_s: float | None,
                         label: str = "chunk"):
     """Run `fn(stop)` under a wall-clock timeout.
@@ -338,9 +362,10 @@ def _call_with_watchdog(fn: Callable, timeout_s: float | None,
             raise CampaignError(
                 f"{label}: stuck; its worker did not stop within "
                 f"{timeout_s:g}s of the {timeout_s:g}s watchdog's expiry")
+        box.clear()                 # the stopped attempt's error, frames
         raise ChunkTimeout(f"chunk exceeded the {timeout_s:g}s watchdog")
     if "err" in box:
-        raise box["err"]
+        raise box.pop("err")        # the box lets go of it at once
     return box["out"]
 
 
@@ -556,6 +581,7 @@ def _run_chunk_with_retries(mode, make_args, chunk_ids, params, B, devs,
         # fresh per attempt so a failed attempt's partial sub-dispatches
         # never pollute the occupancy counters
         tel = []
+        oom = False
         try:
             res = _attempt_chunk(mode, make_args, chunk_ids, params, B, b,
                                  devs, budget, watchdog_s, telemetry=tel,
@@ -563,13 +589,18 @@ def _run_chunk_with_retries(mode, make_args, chunk_ids, params, B, devs,
         except ChunkTimeout as e:
             stats.timeouts += 1
             meta["timeouts"] += 1
-            failure = e
+            failure = _let_go(e)
             continue
         except Exception as e:  # noqa: BLE001 — classified below
             if not _is_oom(e):
                 raise
+            failure = _let_go(e)
+            oom = True
+        if oom:
+            # past the handler nothing holds the failed attempt: its
+            # tensors and graph are freed, and the allocator can give
+            # their blocks back before the retry
             stats.oom_events += 1
-            failure = e
             _free_device_memory()
             if b > retry.shrink_floor * D:
                 b = _shrink_batch(b, D, retry.shrink_floor)

@@ -24,14 +24,28 @@ DTensor sees the ops on the local shards, and counts:
   * dot_bytes_per_dev: their operands' and outputs' bytes;
   * collective_bytes: the output bytes of each collective DTensor issues
     (all-gather, all-reduce, reduce-scatter, all-to-all), per device;
-  * memory: the local shards' bytes of the step's arguments.
+  * memory, per device: `argument_size_in_bytes`, the local shards' bytes
+    of the step's arguments; `temp_size_in_bytes`, the peak of the live
+    bytes of the local tensors the step allocates (counted by storage,
+    since views share one, and freed when the storage dies); and
+    `output_size_in_bytes`, the local bytes of the step's outputs (a
+    train step's parameters and optimizer state are updated in place, so
+    its outputs are mostly its arguments). Argument plus temp is the
+    step's peak on a card, which the verbose line prints as `mem/dev`.
+    The reference's `generated_code_size_in_bytes` and
+    `alias_size_in_bytes` are XLA's, and have no counterpart here.
 
-Layer loops are Python loops, so every op is counted as often as it
-runs (the reference weights its HLO loop bodies by trip counts). On fake
-tensors the models take the plain forms at the kernel sites
-(`models/modules.py::plain_forms`), as the reference's dry-run lowers
-them. The fake group is process-global: run the dry-run in a process of
-its own, never in one that holds another process group.
+The step runs twice and the second run is counted: the first time a
+process meets an op, DTensor infers its output's shape by running it on
+whole (global-shape) fake tensors, and a mode below DTensor would count
+that run as the rank's own products and bytes, so a cell's counts would
+depend on the cells run before it. Layer loops are Python loops, so
+every op is counted as often as it runs (the reference weights its HLO
+loop bodies by trip counts). On fake tensors the models take the plain
+forms at the kernel sites (`models/modules.py::plain_forms`), as the
+reference's dry-run lowers them. The fake group is process-global: run
+the dry-run in a process of its own, never in one that holds another
+process group.
 """
 from __future__ import annotations
 
@@ -43,14 +57,16 @@ import math
 import os
 import time
 import traceback
+import weakref
 from pathlib import Path
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils._pytree import tree_leaves
 
 from repro_torch import configs
 from repro_torch.launch import mesh as meshlib
-from repro_torch.launch.shapes import SHAPES, applicable
+from repro_torch.launch.shapes import SHAPES, ShapeSpec, applicable
 from repro_torch.models import lm
 from repro_torch.models import modules as nn
 from repro_torch.parallel import sharding
@@ -90,11 +106,17 @@ def abstract_params(cfg):
         return lm.lm_init(cfg, torch.Generator(), device="cpu")
 
 
-def input_specs(arch: str, shape_name: str, cfg=None) -> Dict[str, Any]:
+def _spec(shape) -> ShapeSpec:
+    """A shape of the suite by name, or a `ShapeSpec` as given (a cell at
+    another size, as the card's check of one step's memory runs)."""
+    return shape if isinstance(shape, ShapeSpec) else SHAPES[shape]
+
+
+def input_specs(arch: str, shape_name, cfg=None) -> Dict[str, Any]:
     """Fake stand-ins for every model input of the cell (tokens as int64,
     the port's index dtype)."""
     cfg = cfg or configs.get_config(arch)
-    spec = SHAPES[shape_name]
+    spec = _spec(shape_name)
     B, S = spec.global_batch, spec.seq_len
     i64 = torch.int64
     out: Dict[str, Any] = {"kind": spec.kind}
@@ -174,11 +196,11 @@ def _counts(cfg):
     return lm.param_count(params), lm.active_param_count(cfg, params)
 
 
-def model_flops_for_cell(cfg, shape_name: str) -> Dict[str, float]:
+def model_flops_for_cell(cfg, shape_name) -> Dict[str, float]:
     """Analytic MODEL_FLOPS: 6*N_active*tokens (train) / 2*N_active*tokens
     (inference), the reference's accounting for the useful-compute
     ratio."""
-    spec = SHAPES[shape_name]
+    spec = _spec(shape_name)
     n_total, n_active = _counts(cfg)
     if spec.kind == "train":
         mf = 6.0 * n_active * spec.global_batch * spec.seq_len
@@ -197,23 +219,60 @@ def _nbytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+def _aliases(func) -> bool:
+    """Whether the op's outputs are views of, or the same tensors as, its
+    inputs (its schema marks each such output with alias information)."""
+    schema = getattr(func, "_schema", None)
+    return schema is not None and any(r.alias_info is not None
+                                      for r in schema.returns)
+
+
 class Counter(torch.utils._python_dispatch.TorchDispatchMode):
-    """Counts the matrix products and the collectives one rank runs. An op
-    on DTensors is let through (NotImplemented) so that DTensor runs it,
-    and its local products and its collectives come back here as ops on
-    plain (local) tensors."""
+    """Counts the matrix products, the collectives and the live bytes of
+    one rank. An op on DTensors is let through (NotImplemented) so that
+    DTensor runs it, and its local products, collectives and allocations
+    come back here as ops on plain (local) tensors.
+
+    Live bytes are counted by storage: an output whose storage is new (not
+    seen before, and not an alias of an input by the op's schema) adds the
+    storage's bytes, and a weak reference takes them off when it dies.
+    `peak_bytes` is the most that was live at once. Tensors that existed
+    before the mode was entered are never counted."""
 
     def __init__(self):
         super().__init__()
         self.dot_flops = 0.0
         self.dot_bytes = 0.0
         self.collective_bytes: Dict[str, float] = {}
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._live: Dict[int, weakref.ref] = {}
+
+    def _freed(self, key: int, nbytes: int, _ref) -> None:
+        if self._live.pop(key, None) is not None:
+            self.live_bytes -= nbytes
+
+    def _allocated(self, out) -> None:
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            st = t.untyped_storage()
+            key = id(st)
+            if key in self._live:
+                continue
+            nbytes = st.nbytes()
+            self._live[key] = weakref.ref(
+                st, functools.partial(self._freed, key, nbytes))
+            self.live_bytes += nbytes
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         out = func(*args, **(kwargs or {}))
+        if not _aliases(func):
+            self._allocated(out)
         name = func._overloadpacket.__name__
         if name in _DOTS:
             a, b = args[-2], args[-1]
@@ -230,6 +289,30 @@ class Counter(torch.utils._python_dispatch.TorchDispatchMode):
                 kind, 0.0) + sum(_nbytes(t) for t in outs
                                  if isinstance(t, torch.Tensor))
         return out
+
+
+def _tensors(tree):
+    """The tensors of a tree of dicts, lists, tuples and modules (their
+    parameters); other leaves are skipped."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, torch.nn.Module):
+        yield from tree.parameters()
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def _storage_bytes(tree) -> int:
+    """Bytes of the distinct storages of the local tensors in `tree`."""
+    seen: Dict[int, int] = {}
+    for t in _tensors(tree):
+        st = getattr(t, "_local_tensor", t).untyped_storage()
+        seen[id(st)] = st.nbytes()
+    return sum(seen.values())
 
 
 def _local_bytes(*trees) -> int:
@@ -258,17 +341,19 @@ def _fake_group(world: int) -> None:
                             world_size=world)
 
 
-def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
+def lower_cell(arch: str, shape_name, multi_pod: bool = False,
                cfg=None, opt_override: Optional[dict] = None,
                variant: Optional[dict] = None, mesh_shape=None):
     """Build the cell on a fake group, its arguments placed: returns
     (run, meta), where run() runs the cell's step once and returns the
-    arguments' local bytes.
+    arguments' local bytes and the step's outputs.
+    `shape_name` names a shape of `SHAPES`, or is a `ShapeSpec`.
     `mesh_shape` (data, model) replaces the production mesh (tests run a
     small cell on 2 x 2)."""
     cfg = apply_variant(cfg or configs.get_config(arch), variant)
     variant = variant or {}
-    skip = applicable(cfg, shape_name)
+    shape = _spec(shape_name)
+    skip = applicable(cfg, shape.name)
     if skip:
         raise ValueError(f"cell skipped: {skip}")
     if mesh_shape is None:
@@ -281,9 +366,9 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
         mesh = init_device_mesh("cpu", tuple(mesh_shape),
                                 mesh_dim_names=("data", "model"))
     mode = _fake_mode()
-    kind = SHAPES[shape_name].kind
+    kind = shape.kind
     with mode:
-        spec = input_specs(arch, shape_name, cfg)
+        spec = input_specs(arch, shape, cfg)
         params = abstract_params(cfg)
         if variant.get("bf16_params"):
             params = nn.map_params(params, lambda p: p.to(torch.bfloat16)
@@ -314,43 +399,55 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool = False,
 
     def run():
         with mode:
-            step(*args)
-        return arg_bytes
-    meta = {"arch": arch, "shape": shape_name, "kind": kind,
+            out = step(*args)
+        return arg_bytes, out
+    meta = {"arch": arch, "shape": shape.name, "kind": kind,
             "multi_pod": multi_pod, "n_devices": mesh.size()}
     return run, meta
 
 
-def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
+def run_cell(arch: str, shape_name, multi_pod: bool = False,
              verbose: bool = True, variant: Optional[dict] = None,
              mesh_shape=None, cfg=None) -> Dict[str, Any]:
     t0 = time.time()
     cfg = apply_variant(cfg or configs.get_config(arch), variant)
-    skip = applicable(cfg, shape_name)
+    name = _spec(shape_name).name
+    skip = applicable(cfg, name)
     if skip:
-        return {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
+        return {"arch": arch, "shape": name, "multi_pod": multi_pod,
                 "status": "skipped", "reason": skip}
     run, meta = lower_cell(arch, shape_name, multi_pod, cfg=cfg,
                            variant=variant, mesh_shape=mesh_shape)
     t_build = time.time() - t0
+    # the step once uncounted: DTensor infers an op's output shape the
+    # first time a process meets the op, by running it on global-shape
+    # fake tensors (then cached), which the counter would take for this
+    # rank's products and allocations
+    run()
+    t1 = time.time()
     counter = Counter()
     with counter:
-        arg_bytes = run()
+        arg_bytes, out = run()
+    out_bytes = _storage_bytes(out)
+    del out
     res: Dict[str, Any] = dict(meta)
     res["status"] = "ok"
     res["build_s"] = round(t_build, 1)
-    res["run_s"] = round(time.time() - t0 - t_build, 1)
+    res["run_s"] = round(time.time() - t1, 1)
     res["dot_flops_per_dev"] = counter.dot_flops
     res["dot_bytes_per_dev"] = counter.dot_bytes
     res["collective_bytes"] = counter.collective_bytes
-    res["memory"] = {"argument_size_in_bytes": float(arg_bytes)}
+    res["memory"] = {"argument_size_in_bytes": float(arg_bytes),
+                     "output_size_in_bytes": float(out_bytes),
+                     "temp_size_in_bytes": float(counter.peak_bytes)}
     res.update(model_flops_for_cell(cfg, shape_name))
     if verbose:
-        print(f"[{arch} x {shape_name} x "
+        per_dev = (arg_bytes + counter.peak_bytes) / 1e9
+        print(f"[{arch} x {name} x "
               f"{'2pod' if multi_pod else '1pod'}] ok "
               f"run {res['run_s']:.0f}s "
               f"dotflops/dev {res['dot_flops_per_dev']:.4g} "
-              f"args/dev {arg_bytes / 1e9:.2f}GB "
+              f"mem/dev {per_dev:.2f}GB "
               f"coll {sum(counter.collective_bytes.values()) / 1e9:.3f}GB",
               flush=True)
     return res

@@ -72,6 +72,11 @@ def build_table(results: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
             "n_active_params": cell["n_active_params"],
             "arg_gb_per_dev": cell["memory"].get(
                 "argument_size_in_bytes", 0) / 1e9,
+            # the step's peak on a card: its arguments and what it
+            # allocates beyond them (the dry-run's live-byte count)
+            "mem_gb_per_dev": (cell["memory"].get("argument_size_in_bytes", 0)
+                               + cell["memory"].get("temp_size_in_bytes", 0))
+            / 1e9,
         })
     return rows
 
@@ -100,29 +105,33 @@ def format_table(rows: List[Dict[str, Any]], mesh: str = "1pod") -> str:
 
 def format_markdown(rows: List[Dict[str, Any]]) -> str:
     """One Markdown row a cell, the 16 x 16 terms beside the 2 x 16 x 16
-    ones (seconds a step on each H100; RF the roofline fraction)."""
+    ones (seconds a step on each H100; RF the roofline fraction; GB the
+    step's peak memory on each card, argument + temp, against an H100's
+    80 GB)."""
     by = {(r["arch"], r["shape"], r["mesh"]): r for r in rows}
     out = ["| arch | shape | 16×16 compute s | memory s | collective s "
-           "| bound | useful | RF | 2×16×16 compute s | memory s "
-           "| collective s | RF |", "|" + "---|" * 12]
+           "| bound | useful | RF | GB | 2×16×16 compute s | memory s "
+           "| collective s | RF | GB |", "|" + "---|" * 14]
     for arch, shape in dict.fromkeys((r["arch"], r["shape"]) for r in rows):
         one, two = by.get((arch, shape, "1pod")), by.get((arch, shape,
                                                           "2pod"))
         if one is None or one.get("status") != "ok":
             out.append(f"| {arch} | {shape} | "
                        f"{(one or two or {}).get('status', '?')} |"
-                       + " |" * 9)
+                       + " |" * 11)
             continue
         cells = [f"{one['compute_s']:.4g}", f"{one['memory_s']:.4g}",
                  f"{one['collective_s']:.4g}", one["dominant"][:-2],
                  f"{one['useful_ratio']:.3f}",
-                 f"{one['roofline_fraction']:.4f}"]
+                 f"{one['roofline_fraction']:.4f}",
+                 f"{one['mem_gb_per_dev']:.4g}"]
         if two is not None and two.get("status") == "ok":
             cells += [f"{two['compute_s']:.4g}", f"{two['memory_s']:.4g}",
                       f"{two['collective_s']:.4g}",
-                      f"{two['roofline_fraction']:.4f}"]
+                      f"{two['roofline_fraction']:.4f}",
+                      f"{two['mem_gb_per_dev']:.4g}"]
         else:
-            cells += [(two or {}).get("status", "?"), "", "", ""]
+            cells += [(two or {}).get("status", "?"), "", "", "", ""]
         out.append(f"| {arch} | {shape} | " + " | ".join(cells) + " |")
     return "\n".join(out)
 

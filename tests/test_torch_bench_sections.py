@@ -36,6 +36,18 @@ REL = 1e-6
 ROOT = Path(__file__).resolve().parents[1]
 
 
+# a chunk size above every sweep here: one chunk a sweep, as on the JAX
+# side, and the chunk-size autotune's probe never runs
+ONE_CHUNK = 1 << 20
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_chunk_a_sweep():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_BENCH_BATCH", str(ONE_CHUNK))
+        yield
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     """The engine's tensors here are tiny: one intra-op thread is faster
@@ -313,7 +325,9 @@ def test_bench_run_writes_its_record(tmp_path, monkeypatch):
     assert set(rec) == {"total_s", "env", "derived", "campaign", "kernels",
                         "sweeps", "not_ported", "sections"}
     assert rec["env"]["device"] == "cpu" and rec["env"]["n_instances"] == 4
-    assert rec["env"]["n_devices"] == 1 and rec["env"]["batch_size"] is None
+    assert rec["env"]["n_devices"] == 1
+    assert rec["env"]["batch_size"] == ONE_CHUNK
+    assert rec["env"]["batch_size_source"] == "env"
     assert rec["env"]["train_grid"] == [len(common.SUBSET_MIXES),
                                         len(common.SUBSET_RATES)]
     assert rec["env"]["torch"] == torch.__version__

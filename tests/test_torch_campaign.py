@@ -1,6 +1,6 @@
 """The port's crash-safe sweep campaigns (`repro_torch.core.campaign`),
-case for case against `tests/test_campaign.py` (its four autotune-cache
-cases aside: the port has no autotune), on the same inputs.
+case for case against `tests/test_campaign.py` (its autotune cases are
+in `tests/test_torch_autotune.py`), on the same inputs.
 
 The bar is the reference's: a campaign killed after k of n chunks and
 resumed against the same checkpoint directory equals one uninterrupted
@@ -378,6 +378,64 @@ def test_oom_exhaustion_raises_campaign_error(monkeypatch):
                                          backoff_max_s=0.0, jitter_frac=0.0))
 
 
+@pytest.mark.parametrize("watchdog_s", [None, 60.0],
+                         ids=["inline", "watchdog-thread"])
+def test_oom_retry_frees_the_failed_attempt(watchdog_s, monkeypatch):
+    """A failed attempt's frame holds a tensor and its own exception (a
+    cycle, as the watchdog's box and a future make one). By the time
+    `_free_device_memory` runs, the tensor is dead without a collection;
+    the retried run is bit-equal, and on exhaustion the `CampaignError`
+    reads as before, chained from a copy of the last failure that holds
+    no traceback. Inline and through the watchdog's worker thread."""
+    import gc
+    import weakref
+    real = camp._compute_chunk
+    held, dead_at_free = [], []
+    msg = "CUDA out of memory. Tried to allocate 1.21 GiB"
+
+    def oomy(mode, part, params, tree, rt, plan, batch, devices, budget,
+             fail_always=False, **kw):
+        if batch > 1 or fail_always:
+            tensor = torch.ones(1000)
+            held.append(weakref.ref(tensor))
+            err = torch.OutOfMemoryError(msg)
+            raise err
+        return real(mode, part, params, tree, rt, plan, batch, devices,
+                    budget, **kw)
+
+    monkeypatch.setattr(camp, "_free_device_memory", lambda: dead_at_free
+                        .append([r() is None for r in held]))
+    was = gc.isenabled()
+    gc.disable()             # only reference counting may free the tensor
+    try:
+        monkeypatch.setattr(camp, "_compute_chunk", oomy)
+        out = _campaign(watchdog_s=watchdog_s)
+        assert out.stats["oom_events"] == N_CHUNKS, out.stats
+        assert len(dead_at_free) == N_CHUNKS
+        assert all(all(d) for d in dead_at_free), dead_at_free
+        _assert_bit_exact(_ref(sim.MODE_LUT), out.result, ctx="freed retry")
+
+        held.clear()
+        dead_at_free.clear()
+        monkeypatch.setattr(camp, "_compute_chunk",
+                            lambda *a, **k: oomy(*a, fail_always=True, **k))
+        with pytest.raises(camp.CampaignError) as e:
+            _campaign(watchdog_s=watchdog_s,
+                      retry=camp.RetryPolicy(max_retries=1,
+                                             backoff_base_s=0.0,
+                                             backoff_max_s=0.0,
+                                             jitter_frac=0.0))
+    finally:
+        if was:
+            gc.enable()
+    assert str(e.value) == (f"chunk 0: gave up after 2 attempts (last "
+                            f"failure: {msg})")
+    cause = e.value.__cause__
+    assert type(cause) is torch.OutOfMemoryError and str(cause) == msg
+    assert cause.__traceback__ is None and cause.__context__ is None
+    assert dead_at_free == [[True], [True, True]]
+
+
 def test_unrecognized_exception_propagates(monkeypatch):
     """Bugs are not infrastructure weather: no retry, no swallowing."""
     monkeypatch.setattr(
@@ -469,41 +527,37 @@ def test_stuck_worker_ends_the_campaign_unretried(monkeypatch):
     assert calls["n"] == 1 and time.perf_counter() - t0 < 5.0
 
 
-@pytest.mark.parametrize("enabled", [True, False])
-def test_capture_pauses_the_cyclic_collector(enabled):
-    """`simulator._gc_paused`, which every graph capture holds: no cyclic
-    collection runs while any thread holds it (a collection inside a
-    capture that destroys a dead attempt's graph invalidates the
-    capture), and the collector's state is restored when the last of
-    overlapping holds, from two threads, ends."""
+def test_watchdog_retry_frees_the_stopped_attempt(monkeypatch):
+    """An attempt stopped by the watchdog holds a tensor in its frame
+    until its flag is set, then ends at its poll (`simulator.Stopped`,
+    kept in the watchdog's box): the retry starts with that tensor dead,
+    without a collection, and finishes bit-equal."""
     import gc
+    import weakref
+    real = camp._compute_chunk
+    held, dead_at_retry = [], []
+
+    def stopped_once(*a, stop=None, **kw):
+        if not held:
+            tensor = torch.ones(1000)
+            held.append(weakref.ref(tensor))
+            assert stop.wait(30), "the watchdog set no stop flag"
+            raise sim.Stopped("stopped at a poll")
+        dead_at_retry.append(held[0]() is None)
+        return real(*a, stop=stop, **kw)
+
+    monkeypatch.setattr(camp, "_compute_chunk", stopped_once)
     was = gc.isenabled()
-    (gc.enable if enabled else gc.disable)()
-    inside, release = threading.Event(), threading.Event()
-    seen = {}
-
-    def other():
-        with sim._gc_paused():
-            inside.set()
-            release.wait(10)
-            seen["other"] = gc.isenabled()
-
+    gc.disable()
     try:
-        t = threading.Thread(target=other)
-        t.start()
-        assert inside.wait(10)
-        with sim._gc_paused():
-            seen["nested"] = gc.isenabled()
-        seen["after_nested"] = gc.isenabled()
-        release.set()
-        t.join(10)
-        assert not t.is_alive()
-        assert seen == {"other": False, "nested": False,
-                        "after_nested": False}, seen
-        assert gc.isenabled() is enabled
-        assert sim._GC_HOLDS[0] == 0
+        # the limit is above a chunk's time here, as in the cases above
+        out = _campaign(watchdog_s=3.0)
     finally:
-        (gc.enable if was else gc.disable)()
+        if was:
+            gc.enable()
+    assert out.stats["timeouts"] >= 1 and out.stats["retries"] >= 1
+    assert dead_at_retry[0] is True, dead_at_retry
+    _assert_bit_exact(_ref(sim.MODE_LUT), out.result, ctx="stopped retry")
 
 
 def test_step_budget_trip_escalates_and_completes():

@@ -161,7 +161,9 @@ def _jax_summary():
     }
 
 
-def test_summary40_slice_matches_jax():
+def test_summary40_slice_matches_jax(monkeypatch):
+    # one chunk a sweep, as on the JAX side; the autotune's probe never runs
+    monkeypatch.setenv("REPRO_BENCH_BATCH", str(1 << 20))
     got = summary40.run("cpu", n_instances=S40_INSTANCES,
                         n_mixes=len(S40_MIXES),
                         train_mixes=S40_MIXES, train_rates=S40_RATES)

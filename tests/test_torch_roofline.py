@@ -163,8 +163,96 @@ def test_dryrun_small_cell_on_fake_mesh(tmp_path):
     assert r["dot_bytes_per_dev"] > 0
     assert r["collective_bytes"]["all-gather"] > 0
     assert r["memory"]["argument_size_in_bytes"] > 0
+    assert r["memory"]["temp_size_in_bytes"] > 0
+    assert r["memory"]["output_size_in_bytes"] > 0
     t = roofline.roofline_terms(r)
     assert t["step_time_bound_s"] > 0 and 0 < t["roofline_fraction"] <= 1.5
+
+
+def test_dryrun_counts_do_not_depend_on_earlier_cells(tmp_path):
+    """The same cell twice in one process counts the same: DTensor
+    infers an op's output shape the first time a process meets it, by
+    running the op on global-shape fake tensors (a smoke Mamba-2
+    `decode_32k` on a 2 x 2 group counted 4.4x the products on its
+    first run), so the dry-run counts a second run of the step."""
+    code = (
+        "import json, sys\n"
+        "from repro_torch import configs\n"
+        "from repro_torch.launch import dryrun\n"
+        "cfg = configs.get_smoke_config('mamba2-780m')\n"
+        "rs = [dryrun.run_cell('mamba2-780m', 'decode_32k', cfg=cfg,\n"
+        "                      mesh_shape=(2, 2), verbose=False)\n"
+        "      for _ in range(2)]\n"
+        "json.dump(rs, open(sys.argv[1], 'w'))\n")
+    out = tmp_path / "cells.json"
+    proc = subprocess.run([sys.executable, "-c", code, str(out)],
+                          env=dict(os.environ, PYTHONPATH=str(SRC)),
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    first, again = json.loads(out.read_text())
+    for k in ("dot_flops_per_dev", "dot_bytes_per_dev", "collective_bytes",
+              "memory"):
+        assert first[k] == again[k], k
+    assert first["dot_flops_per_dev"] > 0
+
+
+@pytest.mark.parametrize("fake", [False, True], ids=["real", "fake"])
+def test_counter_live_bytes_are_exact(fake):
+    """The dry-run's live bytes on allocations known by construction:
+    counted by storage (a view adds nothing), freed when the storage
+    dies, tensors made before the count never counted, on real tensors
+    and on fake ones alike."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    import contextlib
+    ctx = FakeTensorMode() if fake else contextlib.nullcontext()
+    with ctx:
+        before = torch.ones(100)
+        counter = dryrun.Counter()
+        with counter:
+            a = torch.ones(1000)                       # 4,000 live
+            b = a * 2                                  # 8,000: the peak
+            del a                                      # 4,000
+            d = torch.zeros(250, dtype=torch.float64)  # 6,000
+            v = d[10:20].view(2, 5)                    # a view: none
+            w = before.view(10, 10)                    # none
+            before.add_(1)                             # in place: none
+        assert (counter.peak_bytes, counter.live_bytes) == (8000, 6000)
+        assert dryrun._storage_bytes((b, [v, w], {"d": d})) == 6400
+        del b
+        assert counter.live_bytes == 2000
+        del v, d
+        assert counter.live_bytes == 0
+
+
+def _smoke_step_counts(fake: bool) -> tuple:
+    """One single-device train step of a smoke Phi-3 (2 x 32 tokens)
+    under the dry-run's counter: its dot FLOPs and bytes, its peak live
+    bytes and its outputs' bytes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    import contextlib
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as optim, train_step as ts
+    cfg = configs.get_smoke_config("phi3-mini-3.8b")
+    mode = FakeTensorMode() if fake else contextlib.nullcontext()
+    with mode:
+        params = lm.lm_init(cfg, torch.Generator().manual_seed(0),
+                            device="cpu").requires_grad_(True)
+        state = optim.adamw_init(params)
+        tokens = torch.zeros((2, 32), dtype=torch.int64)
+        batch = {"tokens": tokens, "labels": tokens}
+    step = ts.make_train_step(cfg, optim.AdamWConfig())
+    counter = dryrun.Counter()
+    with counter, mode:
+        out = step(params, state, batch)
+    return (counter.dot_flops, counter.dot_bytes, counter.peak_bytes,
+            dryrun._storage_bytes(out))
+
+
+def test_counter_same_on_real_and_fake_tensors():
+    """The same smoke step counts the same products and the same bytes
+    on real CPU tensors as on the fake ones the dry-run runs."""
+    real, fake = _smoke_step_counts(False), _smoke_step_counts(True)
+    assert real == fake and real[2] > 0 and real[3] > 0
 
 
 @pytest.mark.skipif(not os.path.exists(dryrun.OUT),
