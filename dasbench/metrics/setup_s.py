@@ -1,0 +1,9 @@
+"""Seconds from the process's start to the measured window: imports,
+CUDA's start, the inputs' task graphs, the chunk size (the autotune's
+probe on a checkout's first run, its cache after), and one warm-up sweep
+of each scheduler mode of the traffic at the cell's shapes (the kernels'
+build on a checkout's first run)."""
+
+
+def read(r):
+    return r.setup_s
