@@ -39,7 +39,11 @@ every chunk already done. This layer wraps the sweep engine with:
     The permutation is kept in the manifest, checked on resume, and the
     results are put back in grid order before return. `pack=False` or
     `REPRO_BENCH_PACK=0` opts out; per-sweep occupancy (lane super-steps
-    on which the lane was running, over those run) is in the stats.
+    on which the lane was running, over those run) is in the stats;
+  * **spans** — the campaign's host phases, and each engine call's
+    (`simulator.ENGINE_SPANS`), as `Span`s on `time.time_ns()` in
+    `stats["spans"]`, those of failed attempts too; the stats' seconds
+    (`chunk_wall_s`, `wall_s`, the checkpoint's) are read off them.
 
 Checkpoint format (`<dir>/<spec_hash[:16]>-b<B>/`):
 
@@ -118,6 +122,48 @@ class RetryPolicy:
         return base * (1.0 + self.jitter_frac * float(rng.uniform()))
 
 
+class Span(NamedTuple):
+    """A host phase of a campaign, on `time.time_ns()` (the clock that a
+    profiler's device records are put on). `parent` is the name of the
+    span that holds it (None for `campaign.run`); `chunk` is `(chunk
+    index, attempt)` inside a chunk (the attempt None for its checkpoint
+    read and write), None above the chunks; `outcome` ends a
+    `campaign.chunk` attempt: `ok`, `oom`, `timeout` or `stall`.
+
+      campaign.run                 the whole call
+        campaign.prepare           inputs stacked and checked, packing,
+                                   spec hash, up to the chunk loop
+        campaign.chunk             one attempt at a chunk
+          engine.*                 each engine call's phases
+          campaign.to_host         every result field copied back
+        campaign.backoff           between two attempts at a chunk
+        campaign.checkpoint_read   a chunk file loaded
+        campaign.checkpoint_write  a chunk file written
+        campaign.reassemble        the chunks joined in input order
+    """
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: str | None
+    chunk: tuple | None
+    outcome: str | None = None
+
+
+def span_s(spans, name: str) -> float:
+    """Seconds in the spans called `name`."""
+    return sum(s.end_ns - s.start_ns for s in spans if s.name == name) * 1e-9
+
+
+def _span(spans: list, name: str, t0: int, chunk=None,
+          outcome=None) -> int:
+    """Append the span `name`, a child of `campaign.run`, from `t0` to
+    now; returns now."""
+    t = time.time_ns()
+    spans.append(Span(name, t0, t, "campaign.run", chunk, outcome))
+    return t
+
+
 @dataclasses.dataclass
 class CampaignStats:
     """Counters of one campaign (`as_dict` feeds `bench.run --json`)."""
@@ -142,11 +188,13 @@ class CampaignStats:
     active_trips: int = 0
     retired_events: int = 0
     steps: int = 0
+    replays: int = 0            # CUDA graph replays (blocks after capture)
     # checkpoint cost (the port's): bytes of chunk files written, and
     # seconds writing (fsync included) and reading them
     checkpoint_bytes: int = 0
     checkpoint_write_s: float = 0.0
     checkpoint_read_s: float = 0.0
+    spans: list = dataclasses.field(default_factory=list)   # of `Span`
 
     def as_dict(self) -> dict:
         d = dataclasses.asdict(self)
@@ -375,13 +423,20 @@ def _compute_chunk(mode: int, part: FlatWorkload, params, tree,
                    step_budget: int | None,
                    telemetry: list | None = None,
                    stop=None) -> sim.SimResult:
-    """One fixed-shape `run_batch` call, fetched to host numpy."""
+    """One fixed-shape `run_batch` call, fetched to host numpy (the copy
+    timed as `campaign.to_host`, a span of the call's last telemetry
+    record, when `telemetry` is given)."""
     res = sim.run_batch(mode, part, params, tree=tree,
                         rate_threshold=rate_threshold, plan=plan,
                         batch_size=batch, devices=list(devices),
                         device=devices[0], step_budget=step_budget,
                         telemetry=telemetry, stop=stop)
-    return sim.to_numpy(res)
+    t0 = time.time_ns()
+    out = sim.to_numpy(res)
+    if telemetry:
+        telemetry[-1]["spans"].append(("campaign.to_host", t0,
+                                       time.time_ns()))
+    return out
 
 
 def _resolve_pack(pack: bool | None) -> bool:
@@ -440,8 +495,9 @@ def run_campaign(mode: int, wls, params=None, tree=None,
     Returns `(result, stats)`: `result` (host numpy) is bit-identical to
     one uninterrupted `run_batch` call over the same scenarios — whether
     the chunks were computed now, loaded from checkpoints, or both,
-    packed or not.
+    packed or not. `stats["spans"]` times the call's host phases (`Span`).
     """
+    t_run = time.time_ns()
     devs = sim._resolve_devices(devices, device)
     D = len(devs)
     params = params or sim.make_params(device=devs[0])
@@ -510,63 +566,81 @@ def run_campaign(mode: int, wls, params=None, tree=None,
         cdir = _open_campaign_dir(checkpoint_dir, manifest)
 
     rng = np.random.RandomState(retry.seed)
-    t_start = time.perf_counter()
+    spans = stats.spans
+    t_loop = _span(spans, "campaign.prepare", t_run)
     chunk_results = []
     for ci in range(n_chunks):
         path = _chunk_path(cdir, ci) if cdir else None
         res = None
         if path and resume and os.path.exists(path):
-            t0 = time.perf_counter()
+            t0 = time.time_ns()
             res = _load_chunk(path, B)
-            stats.checkpoint_read_s += time.perf_counter() - t0
+            _span(spans, "campaign.checkpoint_read", t0, (ci, None))
             if res is not None:
                 stats.chunks_reused += 1
                 stats.chunk_wall_s.append(0.0)
         if res is None:
-            t0 = time.perf_counter()
             ids = sched[ci * B:(ci + 1) * B]
             res, meta = _run_chunk_with_retries(
                 mode, make_args, ids, params, B, devs, watchdog_s,
-                step_budget, retry, rng, stats, label=f"chunk {ci}")
-            wall = time.perf_counter() - t0
-            meta["wall_s"] = round(wall, 4)
-            stats.chunk_wall_s.append(round(wall, 4))
+                step_budget, retry, rng, stats, ci)
+            stats.chunk_wall_s.append(meta["wall_s"])
             stats.chunks_computed += 1
             if path:
-                t0 = time.perf_counter()
+                t0 = time.time_ns()
                 _save_chunk(path, res, meta)
-                stats.checkpoint_write_s += time.perf_counter() - t0
+                _span(spans, "campaign.checkpoint_write", t0, (ci, None))
                 stats.checkpoint_bytes += os.path.getsize(path)
         chunk_results.append(res)
         if chunk_delay_s:
             time.sleep(chunk_delay_s)
     # chunks are in schedule (packed) order: unscatter back to input order
     # (`packed[i]` is scenario `perm[i]`, so row j comes from `inv[j]`)
+    t0 = time.time_ns()
     inv = np.empty(n, np.int64)
     inv[perm] = np.arange(n)
     out = sim.SimResult(*[
         np.concatenate(fields, axis=0)[:n][inv]
         for fields in zip(*chunk_results)
     ])
-    stats.wall_s = round(time.perf_counter() - t_start, 4)
+    t_end = _span(spans, "campaign.reassemble", t0)
+    spans.insert(0, Span("campaign.run", t_run, t_end, None, None))
+    stats.wall_s = round((t_end - t_loop) * 1e-9, 4)
+    stats.checkpoint_read_s = span_s(spans, "campaign.checkpoint_read")
+    stats.checkpoint_write_s = span_s(spans, "campaign.checkpoint_write")
     return CampaignResult(out, stats.as_dict())
+
+
+def _end_attempt(stats: CampaignStats, t0: int, chunk: tuple, outcome: str,
+                 tel: list) -> int:
+    """Close an attempt's `campaign.chunk` span, with the spans of its
+    telemetry records (each engine call's, and `campaign.to_host`) inside
+    it; returns now."""
+    t = _span(stats.spans, "campaign.chunk", t0, chunk, outcome)
+    inner = [x for rec in tel for x in rec["spans"]]
+    stats.spans.extend(Span(name, a, b, "campaign.chunk", chunk)
+                       for name, a, b in sorted(inner, key=lambda x: x[1]))
+    return t
 
 
 def _run_chunk_with_retries(mode, make_args, chunk_ids, params, B, devs,
                             watchdog_s, step_budget, retry: RetryPolicy,
-                            rng, stats: CampaignStats,
-                            label: str) -> tuple:
-    """Attempt one chunk until it succeeds or the retry budget runs out.
+                            rng, stats: CampaignStats, ci: int) -> tuple:
+    """Attempt chunk `ci` until it succeeds or the retry budget runs out.
 
     Mutable per-chunk state across attempts: `b` (the sub-batch size,
     halved on OOM) and `budget` (the step budget, escalated on stall
-    trips). The returned result always covers the full `B` scenarios."""
+    trips). The returned result always covers the full `B` scenarios.
+    Each attempt is a `campaign.chunk` span and each wait between two a
+    `campaign.backoff`, end to end, so `meta["wall_s"]` is their sum."""
     D = len(devs)
+    label = f"chunk {ci}"
     b = B
     budget = step_budget
     meta = {"attempts": 0, "retries": 0, "shrinks": 0, "timeouts": 0,
             "stall_trips": 0, "final_batch": b, "final_step_budget": budget}
     failure = None
+    t_first = t = time.time_ns()
     for attempt in range(retry.max_retries + 1):
         meta["attempts"] = attempt + 1
         if attempt:
@@ -578,9 +652,11 @@ def _run_chunk_with_retries(mode, make_args, chunk_ids, params, B, devs,
                       f"{retry.max_retries} after {failure}; backing off "
                       f"{delay:.2f}s (batch {b}, step budget {budget})")
                 time.sleep(delay)
+            t = _span(stats.spans, "campaign.backoff", t, (ci, attempt))
         # fresh per attempt so a failed attempt's partial sub-dispatches
-        # never pollute the occupancy counters
+        # never pollute the occupancy counters (its spans are kept)
         tel = []
+        chunk = (ci, attempt)
         oom = False
         try:
             res = _attempt_chunk(mode, make_args, chunk_ids, params, B, b,
@@ -590,6 +666,7 @@ def _run_chunk_with_retries(mode, make_args, chunk_ids, params, B, devs,
             stats.timeouts += 1
             meta["timeouts"] += 1
             failure = _let_go(e)
+            t = _end_attempt(stats, t, chunk, "timeout", tel)
             continue
         except Exception as e:  # noqa: BLE001 — classified below
             if not _is_oom(e):
@@ -607,6 +684,7 @@ def _run_chunk_with_retries(mode, make_args, chunk_ids, params, B, devs,
                 stats.shrinks += 1
                 meta["shrinks"] += 1
                 meta["final_batch"] = b
+            t = _end_attempt(stats, t, chunk, "oom", tel)
             continue
         if budget is not None and \
                 (np.asarray(res.stall_reason) == sim.STALL_BUDGET).any():
@@ -616,12 +694,16 @@ def _run_chunk_with_retries(mode, make_args, chunk_ids, params, B, devs,
                 f"lanes hit the {budget}-step budget")
             budget = budget * retry.budget_escalation
             meta["final_step_budget"] = budget
+            t = _end_attempt(stats, t, chunk, "stall", tel)
             continue
+        t = _end_attempt(stats, t, chunk, "ok", tel)
+        meta["wall_s"] = round((t - t_first) * 1e-9, 4)
         for rec in tel:
             stats.lane_trips += rec["lane_trips"]
             stats.active_trips += rec["active_trips"]
             stats.retired_events += rec["events"]
             stats.steps += rec["steps"]
+            stats.replays += rec["replays"]
         return res, meta
     raise CampaignError(
         f"{label}: gave up after {retry.max_retries + 1} attempts "

@@ -43,7 +43,8 @@ recorded over the state's buffers, so a block costs one graph launch
 of host time. The results are bit-equal to the eager loop's
 (`_simulate_eager`), and the decision kernels' `LAUNCHES` count each
 replay. Each call's telemetry counts, on the device, the super-steps
-each lane was running (occupancy).
+each lane was running (occupancy), and times the call's host phases as
+spans (`_open_record`).
 
 Every per-lane buffer that takes gated row writes is stored flat, as
 `[S * N + 1, ...]`: lane s owns rows `s*N .. s*N + N - 1`, and the last
@@ -85,6 +86,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import os
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -1298,35 +1300,87 @@ class Stopped(RuntimeError):
     """The caller's `stop` flag was set; the sweep ended at a poll."""
 
 
+# The host phases of an engine call, in order, as its telemetry record's
+# spans `(name, start_ns, end_ns)` on `time.time_ns()`, the clock that
+# the profiler's device records are put on. Each span ends where the
+# next begins: one clock read a boundary and no host sync of their own.
+# A poll of any(running) waits for the block before it, so it counts in
+# that block's span.
+#   engine.setup        the part's inputs to the device, the stream, the
+#                       context and the initial state, and the first poll
+#   engine.eager_block  a block run eagerly (on a card the first; on the
+#                       CPU each) and the poll after it
+#   engine.capture      recording and instantiating the CUDA graph
+#   engine.replays      the replays and their polls, to the loop's exit
+#   engine.finalize     the results gathered, the stream drained
+# Through `run_batch`, `engine.setup` starts where the part's inputs are
+# first sliced; `campaign._compute_chunk` adds `campaign.to_host` to the
+# last record.
+ENGINE_SPANS = ("engine.setup", "engine.eager_block", "engine.capture",
+                "engine.replays", "engine.finalize")
+
+
+def _open_record(telemetry: list | None) -> dict | None:
+    """The telemetry record of one engine call, appended to `telemetry`
+    when the call starts, so that a call which fails leaves its spans
+    (None when `telemetry` is None); the counters come at its end."""
+    if telemetry is None:
+        return None
+    rec = {"start_ns": time.time_ns(), "spans": []}
+    telemetry.append(rec)
+    return rec
+
+
+def _start_at(rec: dict, t0: int) -> None:
+    """Move the start of the record `rec`, and of its first span, back to
+    `t0`: where its caller began to prepare the call."""
+    rec["start_ns"] = t0
+    if rec["spans"]:
+        name, _, t1 = rec["spans"][0]
+        rec["spans"][0] = (name, t0, t1)
+
+
+def _lap(rec: dict | None, name: str) -> None:
+    """Close the span `name` of the record `rec` now; it began where the
+    record's last span ended, or at the record's start."""
+    if rec is not None:
+        spans = rec["spans"]
+        t = time.time_ns()
+        spans.append((name, spans[-1][2] if spans else rec["start_ns"], t))
+
+
 def _simulate(mode: int, params: SimParams, wls: FlatWorkload, tree: DTree,
               rate_threshold: torch.Tensor, telemetry: list | None,
               graph: bool, plan: flt.FaultPlan | None = None,
               step_budget: int | None = None, stop=None) -> SimResult:
+    rec = _open_record(telemetry)
     dev = params.exec_pe.device
     if dev.type != "cuda":
-        return _simulate_on(mode, params, wls, tree, rate_threshold,
-                            telemetry, graph, plan, step_budget, stop)
-    # a stream of its own, which the graph records on: the caller's work
-    # is waited for first, and the stream is drained before return
-    stream = torch.cuda.Stream(dev)
-    stream.wait_stream(torch.cuda.current_stream(dev))
-    try:
-        with torch.cuda.stream(stream):
-            res = _simulate_on(mode, params, wls, tree, rate_threshold,
-                               telemetry, graph, plan, step_budget, stop)
-    except BaseException:
+        res = _simulate_on(mode, params, wls, tree, rate_threshold, rec,
+                           graph, plan, step_budget, stop)
+    else:
+        # a stream of its own, which the graph records on: the caller's
+        # work is waited for first, and the stream is drained before return
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
         try:
-            stream.synchronize()
-        except RuntimeError:
-            pass        # the error being raised says more
-        raise
-    stream.synchronize()
+            with torch.cuda.stream(stream):
+                res = _simulate_on(mode, params, wls, tree, rate_threshold,
+                                   rec, graph, plan, step_budget, stop)
+        except BaseException:
+            try:
+                stream.synchronize()
+            except RuntimeError:
+                pass        # the error being raised says more
+            raise
+        stream.synchronize()
+    _lap(rec, "engine.finalize")
     return res
 
 
 def _simulate_on(mode: int, params: SimParams, wls: FlatWorkload,
                  tree: DTree, rate_threshold: torch.Tensor,
-                 telemetry: list | None, graph: bool,
+                 rec: dict | None, graph: bool,
                  plan: flt.FaultPlan | None, step_budget: int | None,
                  stop) -> SimResult:
     dev = params.exec_pe.device
@@ -1348,7 +1402,7 @@ def _simulate_on(mode: int, params: SimParams, wls: FlatWorkload,
     s = _init_state(ctx, wl, pe_slow)
     it = torch.zeros(ctx.S, dtype=torch.int64, device=dev)
     # the occupancy counter is recorded into the step only when asked for
-    active = (None if telemetry is None
+    active = (None if rec is None
               else torch.zeros(ctx.S, dtype=torch.int64, device=dev))
 
     def block(st, i):
@@ -1359,25 +1413,31 @@ def _simulate_on(mode: int, params: SimParams, wls: FlatWorkload,
     # with `graph`, the first block runs eagerly (the warm-up that loads
     # every library) and the next one is captured, then replayed. A set
     # `stop` (a `threading.Event`) ends the sweep at the next poll.
-    steps, replay = 0, None
+    steps, replays, replay, phase = 0, 0, None, "engine.setup"
     while bool(_running(wl, s, it, max_iters).any()):
+        if replay is None:
+            _lap(rec, phase)
         if stop is not None and stop.is_set():
             raise Stopped(f"stopped after {steps} super-steps")
         if graph and steps and replay is None:
             replay = _capture(block, s, it)
+            _lap(rec, "engine.capture")
+            phase = "engine.replays"
         if replay is None:
             s, it = block(s, it)
+            phase = "engine.eager_block"
         else:
             replay()
+            replays += 1
         steps += POLL_EVERY
+    _lap(rec, phase)
     res = _finalize(ctx, wl, s, it, max_iters)
-    if telemetry is not None:
+    if rec is not None:
         # occupancy: lane-super-steps run against those on which the
         # lane was still running (counted on the device by `_block`)
-        telemetry.append({"lanes": ctx.S, "steps": steps,
-                          "events": int(it.sum()),
-                          "lane_trips": ctx.S * steps,
-                          "active_trips": int(active.sum())})
+        rec.update(lanes=ctx.S, steps=steps, events=int(it.sum()),
+                   lane_trips=ctx.S * steps,
+                   active_trips=int(active.sum()), replays=replays)
     return res
 
 
@@ -1393,11 +1453,12 @@ def simulate_batch(mode: int, params: SimParams, wls: FlatWorkload,
     are `[3]/[3]/[4]` or `[S, ...]`; `rate_threshold` is `[S]` f32. `plan`
     is a validated host `faults.FaultPlan`, shared or stacked along `[S]`;
     `step_budget` caps each lane's events (`STALL_BUDGET`). When
-    `telemetry` is a list, a record of this call's lanes, super-steps and
-    retired events is appended. On a CUDA device the first block of
-    super-steps runs eagerly and the rest replay it from a CUDA graph, on
-    a stream of the call's own. `stop` (a `threading.Event`), once set,
-    makes the call raise `Stopped` at its next poll.
+    `telemetry` is a list, a record of this call is appended: its lanes,
+    super-steps, retired events, occupancy and graph replays, and its
+    host phases as spans (`ENGINE_SPANS`). On a CUDA device the first block of super-steps
+    runs eagerly and the rest replay it from a CUDA graph, on a stream of
+    the call's own. `stop` (a `threading.Event`), once set, makes the
+    call raise `Stopped` at its next poll.
     """
     return _simulate(mode, params, wls, tree, rate_threshold, telemetry,
                      params.exec_pe.device.type == "cuda", plan, step_budget,
@@ -1560,16 +1621,23 @@ def _run_batch(simulate, mode: int, wls, params: SimParams | None = None,
     on_dev = {d: SimParams(*[x.to(d) for x in params]) for d in set(devs)}
 
     def run_part(d: torch.device, ids: np.ndarray) -> SimResult:
-        tids = torch.as_tensor(ids, device=dev)
-        part = FlatWorkload(*[np.asarray(x)[ids] for x in stacked])
-        part_plan = (flt.FaultPlan(*[x[ids] for x in plan]) if plan_b
-                     else plan)
-        with _on_device(d):
-            return simulate(
-                mode, on_dev[d], part,
-                DTree(*[x[tids].to(d) for x in tree]), thr[tids].to(d),
-                telemetry=telemetry, plan=part_plan,
-                step_budget=step_budget, stop=stop)
+        t0 = time.time_ns()         # the part's `engine.setup` starts here
+        tel = None if telemetry is None else []
+        try:
+            tids = torch.as_tensor(ids, device=dev)
+            part = FlatWorkload(*[np.asarray(x)[ids] for x in stacked])
+            part_plan = (flt.FaultPlan(*[x[ids] for x in plan]) if plan_b
+                         else plan)
+            with _on_device(d):
+                return simulate(
+                    mode, on_dev[d], part,
+                    DTree(*[x[tids].to(d) for x in tree]), thr[tids].to(d),
+                    telemetry=tel, plan=part_plan,
+                    step_budget=step_budget, stop=stop)
+        finally:
+            for rec in tel or ():
+                _start_at(rec, t0)
+                telemetry.append(rec)
 
     def run_parts(parts: list) -> list:
         return [run_part(d, ids) for d, ids in parts]
