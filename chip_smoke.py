@@ -25,13 +25,14 @@ paths through them:
     `benchmarks/BENCH_sweep.json`, checks the record's campaign block
     and holds `serving_das`, the reference's replica injected, to its
     record; phase 5d runs the campaign layer on the card (the
-    kill-and-resume smoke test, campaign against `run_batch` bit for
-    bit, packed, resumed and under fault plans, a real CUDA
+    kill-and-resume smoke test, the engine's kept graph: a second call
+    of one shape on other arrivals replays the first's graph, held to
+    the card's eager loop and the CPU, campaign against `run_batch` bit
+    for bit, packed, resumed and under fault plans, a real CUDA
     out-of-memory (the retry starting with the failed attempt's memory
-    freed, a cyclic collection inside each of its captures) and a
-    watchdog trip inside a graph capture, the
-    scenario split, `bench.run --resume` twice) and reads the idle
-    card's power draw;
+    freed and no graph kept, a cyclic collection inside its capture)
+    and a watchdog trip inside a graph capture, the scenario split,
+    `bench.run --resume` twice) and reads the idle card's power draw;
   * RecurrentGemma-9B inference at full width and depth (38 layers,
     d_model 4096, vocab 256,000, random weights from a seed): scoring
     4096 tokens, then serving 4 prompts of 4096 tokens with 32 greedy
@@ -1322,17 +1323,22 @@ def _eager_vs_graph() -> dict:
                                           telemetry=tel))
         wall = time.perf_counter() - t0
         steps = sum(x["steps"] for x in tel)
-        runs.append((kind, wall * 1e3 / steps, steps))
+        runs.append((kind, wall * 1e3 / steps, steps,
+                     "+".join(x["graph"] for x in tel)))
         results.setdefault(kind, res)
     for f in sim.SimResult._fields:
         a, b = getattr(results["graph"], f), getattr(results["eager"], f)
         if a.dtype != b.dtype or a.tobytes() != b.tobytes():
             raise AssertionError(f"ETF sweep {f}: graph != eager")
-    eager = [ms for k, ms, _ in runs if k == "eager"]
-    graph = [ms for k, ms, _ in runs if k == "graph"]
+    eager = [ms for k, ms, _, _ in runs if k == "eager"]
+    graph = [ms for k, ms, _, _ in runs if k == "graph"]
     log(f"[4 das] one oracle-sized ETF sweep ({runs[0][2]} super-steps), in "
-        f"turns: " + ", ".join(f"{k} {ms:.3f}" for k, ms, _ in runs)
+        f"turns: " + ", ".join(f"{k} ({how}) {ms:.3f}"
+                               for k, ms, _, how in runs)
         + " ms/step; graph and eager results bit-equal")
+    if [how for k, _, _, how in runs if k == "graph"] != ["captured", "hit"]:
+        raise AssertionError(f"the second graph sweep did not replay the "
+                             f"first's kept graph: {runs}")
     if not max(graph) < min(eager):
         raise AssertionError(f"the captured step is not faster: {runs}")
     return {"eager_ms_per_step": eager, "graph_ms_per_step": graph,
@@ -1801,6 +1807,78 @@ def _kill_resume() -> dict:
     return launches
 
 
+def _graph_cache(trees: dict) -> dict:
+    """The engine's kept graphs on the card: for LUT, ETF and DAS, two
+    `run_batch` calls of one shape (phase 5's cells at 60 frames) on
+    arrivals of two seeds. The first captures, the second replays the
+    first's kept graph from super-step 0 and must equal the card's eager
+    loop in every field, and the CPU in its schedules (float aggregates
+    within `TOL_AGG`, as in phase 5); the first call's result is left as
+    it was. Logs the card's bytes held by the three kept entries."""
+    import numpy as np
+    import torch
+    from repro_torch.core import convert, simulator as sim, workloads
+    t0 = time.perf_counter()
+    sim.clear_graph_cache()
+    torch.cuda.synchronize()
+    base = (torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+    suite = workloads.default_suite(n_instances=60)
+    cells = [(m, r) for m in (0, 5, 17, 39) for r in (0, 13)]
+    first, second = (suite.build_many(cells, seed=k) for k in (1, 2))
+    if (first.inst_arrival == second.inst_arrival).all():
+        raise AssertionError("5d kept graph: the seeds draw one arrival")
+    worst = 0.0
+    for mode in (sim.MODE_LUT, sim.MODE_ETF, sim.MODE_DAS):
+        name = sim.MODE_NAMES[mode]
+        res, tel = {}, []
+        for dev in ("cuda", "cpu"):
+            tree = (convert.dtree_from_numpy(**trees["DAS"], device=dev)
+                    if mode == sim.MODE_DAS else None)
+            if dev == "cuda":
+                a = sim.run_batch(mode, first, tree=tree, device=dev,
+                                  telemetry=tel)
+                a_host = sim.to_numpy(a)
+                res["cuda"] = sim.to_numpy(sim.run_batch(
+                    mode, second, tree=tree, device=dev, telemetry=tel))
+                _same(a_host, sim.to_numpy(a), f"5d kept graph {name}: "
+                      "the first result after the second call")
+                eager = sim.to_numpy(sim._run_batch(
+                    sim._simulate_eager, mode, second, tree=tree,
+                    device=dev))
+            else:
+                res["cpu"] = sim.to_numpy(sim.run_batch(
+                    mode, second, tree=tree, device=dev))
+        if [r["graph"] for r in tel] != ["captured", "hit"]:
+            raise AssertionError(f"5d kept graph {name}: {tel}")
+        _same(res["cuda"], eager, f"5d kept graph {name}: hit vs eager")
+        for f in EXACT_FIELDS:
+            a, b = getattr(res["cuda"], f), getattr(res["cpu"], f)
+            if a.dtype != b.dtype or not np.array_equal(a, b,
+                                                        equal_nan=True):
+                raise AssertionError(f"5d kept graph {name} {f}: card != "
+                                     "CPU")
+        for f in AGG_FIELDS:
+            a = getattr(res["cuda"], f).astype(np.float64)
+            b = getattr(res["cpu"], f).astype(np.float64)
+            rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+            worst = max(worst, float(rel.max()))
+            if (rel > TOL_AGG).any():
+                raise AssertionError(f"5d kept graph {name} {f}: rel "
+                                     f"{rel.max():.2e} > {TOL_AGG}")
+    torch.cuda.synchronize()
+    held = (torch.cuda.memory_allocated() - base[0],
+            torch.cuda.memory_reserved() - base[1])
+    n_kept = len(sim._GRAPHS)
+    sim.clear_graph_cache()
+    log(f"[5d campaign] kept graph: {len(cells)} cells at 60 frames x "
+        f"LUT/ETF/DAS, the second call of each a hit, every field "
+        f"bit-equal to the card's eager loop, schedules bit-equal to the "
+        f"CPU, float aggregates within {worst:.2e}; {n_kept} kept entries "
+        f"held {held[0]} bytes allocated, {held[1]} reserved "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return {"allocated": held[0], "reserved": held[1]}
+
+
 def phase_campaign(trees: dict, sections: dict) -> dict:
     import gc
     import shutil
@@ -1815,6 +1893,7 @@ def phase_campaign(trees: dict, sections: dict) -> dict:
     kr = _kill_resume()
     log(f"[5d campaign] kill_resume_smoke on the card: PASS, its launches "
         f"{kr} ({time.perf_counter() - t00:.1f}s)")
+    kept = _graph_cache(trees)
 
     ops.reset_launches()
     cells = [(m, r) for m in CAMP_MIXES for r in range(14)]
@@ -1882,11 +1961,13 @@ def phase_campaign(trees: dict, sections: dict) -> dict:
     # block has recorded its kernels; classified, the half-recorded graph
     # dropped with its attempt and its recorded launches taken back out
     # of LAUNCHES, shrunk, finished. The retry starts with the failed
-    # attempt's memory freed (`memory_allocated` back to its level before
-    # the attempt), and a cyclic collection inside each of its captures
-    # finds nothing of the failed attempt to destroy there: nothing holds
-    # it in a cycle (`campaign._let_go`), so no capture pauses the
-    # collector
+    # attempt's memory freed and no graph kept (`memory_allocated` back to
+    # its level before the attempt, which starts with none kept either);
+    # its first part captures, its second replays that kept graph. A
+    # cyclic collection inside the capture finds nothing of the failed
+    # attempt to destroy there: nothing holds it in a cycle
+    # (`campaign._let_go`), so no capture pauses the collector
+    sim.clear_graph_cache()
     total = torch.cuda.get_device_properties(0).total_memory
     real_block, real_capture = sim._block, sim._capture
     real_compute = camp._compute_chunk
@@ -1935,14 +2016,15 @@ def phase_campaign(trees: dict, sections: dict) -> dict:
         camp._compute_chunk = real_compute
     st = out.stats
     if not (hit["oom"] == 1 and st["oom_events"] == 1 and st["shrinks"] == 1
-            and st["retries"] == 1 and hit["collected"] >= 2
+            and st["retries"] == 1 and hit["collected"] >= 1
+            and st["captures"] == 1 and st["graph_hits"] == 1
             and len(hit["starts"]) == 3):
         raise AssertionError(f"5d OOM: {hit} {st}")
     before, retry_at = hit["starts"][:2]
     log(f"[5d campaign] allocated on the card: {before} bytes when the "
         f"failed attempt started, {hit['at_oom']} at its out-of-memory, "
         f"{retry_at} when the retry started; {hit['collected']} cyclic "
-        "collections inside the retry's captures")
+        "collections inside the retry's capture")
     if retry_at > before:
         raise AssertionError(f"5d OOM: the retry started with {retry_at} "
                              f"bytes allocated, {before} before the failed "
@@ -1961,7 +2043,8 @@ def phase_campaign(trees: dict, sections: dict) -> dict:
 
     # the watchdog on the card: the first attempt is held in its graph
     # capture until the watchdog sets its stop flag; the flag ends it at
-    # its next poll, the worker is joined, the retry captures anew. The
+    # its next poll, the worker is joined, the stopped attempt's graph is
+    # not kept, and the retry captures anew. The
     # hold ends when the flag is set, not after a fixed sleep, so the
     # capture that follows it has the whole of the join's WATCHDOG_S
     stopped = {"n": 0, "flag": [], "after_flag_s": None}
@@ -1997,7 +2080,8 @@ def phase_campaign(trees: dict, sections: dict) -> dict:
         sim._block, sim._simulate_on = real_block, real_on
     st = out.stats
     if not (hit["held"] == 1 and st["timeouts"] == 1 and st["retries"] == 1
-            and stopped["n"] == 1 and hit["collected"] >= 3):
+            and stopped["n"] == 1 and hit["collected"] >= 2
+            and st["captures"] == 1 and st["graph_hits"] == 0):
         raise AssertionError(f"5d watchdog: {hit} {stopped} {st}")
     _same(small_ref, out.result, "5d after a watchdog trip")
     log(f"[5d campaign] watchdog {WATCHDOG_S}s tripped during a graph "
@@ -2073,7 +2157,7 @@ def phase_campaign(trees: dict, sections: dict) -> dict:
     idle = _idle_power()
     log(f"[5d campaign] idle card power.draw {idle} W; launches {launches}"
         f" ({time.perf_counter() - t00:.1f}s)")
-    return {"launches": launches, "idle_w": idle}
+    return {"launches": launches, "idle_w": idle, "kept_graphs": kept}
 
 
 # ---------------------------------------------------------------------------

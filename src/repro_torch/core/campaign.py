@@ -189,6 +189,8 @@ class CampaignStats:
     retired_events: int = 0
     steps: int = 0
     replays: int = 0            # CUDA graph replays (blocks after capture)
+    graph_hits: int = 0         # engine calls that replayed a kept graph
+    captures: int = 0           # engine calls that captured a graph
     # checkpoint cost (the port's): bytes of chunk files written, and
     # seconds writing (fsync included) and reading them
     checkpoint_bytes: int = 0
@@ -343,7 +345,9 @@ def _is_oom(exc: BaseException) -> bool:
 
 def _free_device_memory() -> None:
     """Return the caching allocator's free blocks to the card before an
-    out-of-memory retry (a failed attempt's tensors are garbage now)."""
+    out-of-memory retry (a failed attempt's tensors are garbage now, and
+    the engine's kept graphs are dropped)."""
+    sim.clear_graph_cache()
     gc.collect()
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.empty_cache()
@@ -704,6 +708,8 @@ def _run_chunk_with_retries(mode, make_args, chunk_ids, params, B, devs,
             stats.retired_events += rec["events"]
             stats.steps += rec["steps"]
             stats.replays += rec["replays"]
+            stats.graph_hits += rec["graph"] == "hit"
+            stats.captures += rec["graph"] == "captured"
         return res, meta
     raise CampaignError(
         f"{label}: gave up after {retry.max_retries + 1} attempts "

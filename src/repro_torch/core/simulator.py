@@ -40,7 +40,10 @@ and the loop polls `any(running)` only before each block of
 call runs on a stream of its own; the first block runs eagerly (the
 warm-up), and from the second on each block replays one CUDA graph
 recorded over the state's buffers, so a block costs one graph launch
-of host time. The results are bit-equal to the eager loop's
+of host time. The captured graph and its buffers are kept for the next
+call of the same shapes (`_GRAPHS`), which copies its inputs in, resets
+the state and replays from the first block: no eager block and no
+capture. The results are bit-equal to the eager loop's
 (`_simulate_eager`), and the decision kernels' `LAUNCHES` count each
 replay. Each call's telemetry counts, on the device, the super-steps
 each lane was running (occupancy), and times the call's host phases as
@@ -83,9 +86,11 @@ without any fault state; `faults.healthy_plan()` gives the same results.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import os
+import threading
 import time
 from typing import NamedTuple
 
@@ -1307,12 +1312,15 @@ class Stopped(RuntimeError):
 # A poll of any(running) waits for the block before it, so it counts in
 # that block's span.
 #   engine.setup        the part's inputs to the device, the stream, the
-#                       context and the initial state, and the first poll
+#                       context and the initial state (with a kept graph,
+#                       copied into its buffers), and the first poll
 #   engine.eager_block  a block run eagerly (on a card the first; on the
 #                       CPU each) and the poll after it
 #   engine.capture      recording and instantiating the CUDA graph
 #   engine.replays      the replays and their polls, to the loop's exit
 #   engine.finalize     the results gathered, the stream drained
+# A call with a kept graph has no eager block and no capture; the
+# record's `graph` says which path ran: "hit", "captured" or "eager".
 # Through `run_batch`, `engine.setup` starts where the part's inputs are
 # first sliced; `campaign._compute_chunk` adds `campaign.to_host` to the
 # last record.
@@ -1378,6 +1386,116 @@ def _simulate(mode: int, params: SimParams, wls: FlatWorkload, tree: DTree,
     return res
 
 
+# Captured blocks kept across calls. An entry is one engine instance on
+# one device: the static inputs its graph reads (`_Ctx`, params,
+# workload, tree, thresholds, plan, an `[S]` iteration cap), the state
+# buffers, `it`, the occupancy counter and the graph's `replay`. Its key
+# is what the graph bakes in, read off the inputs: the device, the mode,
+# the fault phases built, whether occupancy is counted, and the inputs'
+# structure (every tensor's shape and dtype, every int of `_Ctx`, an int
+# `max_iters`, which carries the step budget). A call whose key is kept
+# copies its inputs into the entry's buffers, resets the state to
+# `_init_state`'s and replays from super-step 0: no eager block and no
+# capture. An entry is held by one call at a time (a second call of its
+# key takes the uncached path and does not store what it captured), goes
+# back when its call returns, and is dropped when the call fails. At
+# most `GRAPH_CACHE_SIZE` entries a device, least recently used out
+# first; `clear_graph_cache` drops them all.
+GRAPH_CACHE_SIZE = 4
+
+
+class _Graph:
+    __slots__ = ("key", "inputs", "s", "it", "active", "replay", "held",
+                 "gen")
+
+    def __init__(self, key, inputs, s, it, active, replay, gen):
+        self.key, self.inputs, self.s, self.it = key, inputs, s, it
+        self.active, self.replay, self.gen = active, replay, gen
+        self.held = True
+
+
+_GRAPHS: collections.OrderedDict = collections.OrderedDict()
+_GRAPHS_LOCK = threading.Lock()
+_GRAPHS_GEN = [0]       # bumped by `clear_graph_cache`: older entries go
+
+
+def clear_graph_cache() -> None:
+    """Drop every kept captured block; its buffers and graph are freed
+    once no call holds it (an entry held now is not stored again)."""
+    with _GRAPHS_LOCK:
+        _GRAPHS_GEN[0] += 1
+        _GRAPHS.clear()
+
+
+def _tensors(x) -> list:
+    """The tensor leaves of nested tuples (NamedTuples included)."""
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for y in x for t in _tensors(y)]
+    return []
+
+
+def _structure(x):
+    """`x` with each tensor replaced by its shape and dtype."""
+    if torch.is_tensor(x):
+        return tuple(x.shape), x.dtype
+    if isinstance(x, tuple):
+        return tuple(_structure(y) for y in x)
+    return x
+
+
+def _cloned(x):
+    """`x` with every tensor leaf copied into a dense tensor of its own."""
+    if torch.is_tensor(x):
+        return x.clone(memory_format=torch.contiguous_format)
+    if isinstance(x, tuple):
+        ys = [_cloned(y) for y in x]
+        return type(x)(*ys) if hasattr(x, "_fields") else tuple(ys)
+    return x
+
+
+def _take_graph(key) -> _Graph | None:
+    with _GRAPHS_LOCK:
+        g = _GRAPHS.get(key)
+        if g is None or g.held:
+            return None
+        g.held = True
+        _GRAPHS.move_to_end(key)
+        return g
+
+
+def _give_back(g: _Graph, ok: bool) -> None:
+    """The call holding `g` is done: keep `g` for the next call of its
+    key if the call succeeded, else drop it."""
+    with _GRAPHS_LOCK:
+        kept = _GRAPHS.get(g.key)
+        if kept is g:
+            if ok:
+                g.held = False
+            else:
+                del _GRAPHS[g.key]
+            return
+        if not ok or kept is not None or g.gen != _GRAPHS_GEN[0]:
+            return
+        g.held = False
+        _GRAPHS[g.key] = g
+        dev = g.key[0]
+        idle = [k for k, e in _GRAPHS.items() if k[0] == dev and not e.held]
+        n = sum(k[0] == dev for k in _GRAPHS)
+        for k in idle[:max(0, n - GRAPH_CACHE_SIZE)]:
+            del _GRAPHS[k]
+
+
+def _own(res: SimResult, g: _Graph) -> SimResult:
+    """`res` with every field that shares storage with `g`'s buffers
+    copied, so that a later call of `g` cannot change it."""
+    kept = {t.untyped_storage().data_ptr()
+            for t in _tensors((g.inputs, g.s, g.it))}
+    return SimResult(*[x.clone() if x.untyped_storage().data_ptr() in kept
+                       else x for x in res])
+
+
 def _simulate_on(mode: int, params: SimParams, wls: FlatWorkload,
                  tree: DTree, rate_threshold: torch.Tensor,
                  rec: dict | None, graph: bool,
@@ -1400,44 +1518,88 @@ def _simulate_on(mode: int, params: SimParams, wls: FlatWorkload,
                      if torch.is_tensor(max_iters)
                      else min(max_iters, step_budget))
     s = _init_state(ctx, wl, pe_slow)
-    it = torch.zeros(ctx.S, dtype=torch.int64, device=dev)
     # the occupancy counter is recorded into the step only when asked for
-    active = (None if rec is None
-              else torch.zeros(ctx.S, dtype=torch.int64, device=dev))
-
-    def block(st, i):
-        return _block(ctx, mode, params, st, wl, tree, rate_threshold, i,
-                      max_iters, plan, fcaps, active)
-
-    # poll any(running) (a host sync) before every block of POLL_EVERY;
-    # with `graph`, the first block runs eagerly (the warm-up that loads
-    # every library) and the next one is captured, then replayed. A set
-    # `stop` (a `threading.Event`) ends the sweep at the next poll.
-    steps, replays, replay, phase = 0, 0, None, "engine.setup"
-    while bool(_running(wl, s, it, max_iters).any()):
-        if replay is None:
-            _lap(rec, phase)
-        if stop is not None and stop.is_set():
-            raise Stopped(f"stopped after {steps} super-steps")
-        if graph and steps and replay is None:
-            replay = _capture(block, s, it)
-            _lap(rec, "engine.capture")
-            phase = "engine.replays"
-        if replay is None:
-            s, it = block(s, it)
-            phase = "engine.eager_block"
+    counted = rec is not None
+    inputs = (ctx, params, wl, tree, rate_threshold, plan, max_iters)
+    key = (str(dev), mode, fcaps, counted, _structure(inputs)) if graph \
+        else None
+    kept = _take_graph(key) if graph else None
+    how = "eager" if kept is None else "hit"
+    try:
+        if kept is not None:
+            # the kept graph reads its own buffers: the inputs copied in,
+            # the state reset to the one just built
+            for buf, x in zip(_tensors(kept.inputs), _tensors(inputs)):
+                buf.copy_(x)
+            for buf, x in zip(_tensors(kept.s), _tensors(s)):
+                buf.copy_(x)
+            inputs, s, it, active = (kept.inputs, kept.s, kept.it,
+                                     kept.active)
+            ctx, params, wl, tree, rate_threshold, plan, max_iters = inputs
+            it.zero_()
+            if active is not None:
+                active.zero_()
         else:
-            replay()
-            replays += 1
-        steps += POLL_EVERY
-    _lap(rec, phase)
-    res = _finalize(ctx, wl, s, it, max_iters)
-    if rec is not None:
-        # occupancy: lane-super-steps run against those on which the
-        # lane was still running (counted on the device by `_block`)
-        rec.update(lanes=ctx.S, steps=steps, events=int(it.sum()),
-                   lane_trips=ctx.S * steps,
-                   active_trips=int(active.sum()), replays=replays)
+            if graph:
+                # a graph kept for later calls reads buffers of its own,
+                # which no caller holds and which take copies in place
+                inputs = _cloned(inputs)
+                ctx, params, wl, tree, rate_threshold, plan, max_iters = \
+                    inputs
+            it = torch.zeros(ctx.S, dtype=torch.int64, device=dev)
+            active = (torch.zeros(ctx.S, dtype=torch.int64, device=dev)
+                      if counted else None)
+
+        def block(st, i):
+            return _block(ctx, mode, params, st, wl, tree, rate_threshold,
+                          i, max_iters, plan, fcaps, active)
+
+        # poll any(running) (a host sync) before every block of
+        # POLL_EVERY; with `graph`, a kept graph replays every block, else
+        # the first block runs eagerly (the warm-up that loads every
+        # library) and the next one is captured, then replayed. A set
+        # `stop` (a `threading.Event`) ends the sweep at the next poll.
+        steps, replays, phase = 0, 0, "engine.setup"
+        replay = None if kept is None else kept.replay
+        while bool(_running(wl, s, it, max_iters).any()):
+            if phase != "engine.replays":
+                _lap(rec, phase)
+            if stop is not None and stop.is_set():
+                raise Stopped(f"stopped after {steps} super-steps")
+            if graph and steps and replay is None:
+                replay = _capture(block, s, it)
+                _lap(rec, "engine.capture")
+                kept = _Graph(key, inputs, s, it, active, replay,
+                              _GRAPHS_GEN[0])
+                how = "captured"
+            if replay is None:
+                s, it = block(s, it)
+                phase = "engine.eager_block"
+            else:
+                replay()
+                replays += 1
+                phase = "engine.replays"
+            steps += POLL_EVERY
+        _lap(rec, phase)
+        res = _finalize(ctx, wl, s, it, max_iters)
+        if kept is not None:
+            res = _own(res, kept)
+            if dev.type == "cuda":
+                # the copies are done before another call may take it
+                torch.cuda.current_stream(dev).synchronize()
+        if rec is not None:
+            # occupancy: lane-super-steps run against those on which the
+            # lane was still running (counted on the device by `_block`)
+            rec.update(lanes=ctx.S, steps=steps, events=int(it.sum()),
+                       lane_trips=ctx.S * steps,
+                       active_trips=int(active.sum()), replays=replays,
+                       graph=how)
+    except BaseException:
+        if kept is not None:
+            _give_back(kept, ok=False)
+        raise
+    if kept is not None:
+        _give_back(kept, ok=True)
     return res
 
 
@@ -1454,11 +1616,13 @@ def simulate_batch(mode: int, params: SimParams, wls: FlatWorkload,
     is a validated host `faults.FaultPlan`, shared or stacked along `[S]`;
     `step_budget` caps each lane's events (`STALL_BUDGET`). When
     `telemetry` is a list, a record of this call is appended: its lanes,
-    super-steps, retired events, occupancy and graph replays, and its
-    host phases as spans (`ENGINE_SPANS`). On a CUDA device the first block of super-steps
-    runs eagerly and the rest replay it from a CUDA graph, on a stream of
-    the call's own. `stop` (a `threading.Event`), once set, makes the
-    call raise `Stopped` at its next poll.
+    super-steps, retired events, occupancy, graph replays and `graph`
+    (the path), and its host phases as spans (`ENGINE_SPANS`). On a CUDA
+    device the first block of super-steps runs eagerly and the rest
+    replay it from a CUDA graph, on a stream of the call's own; the graph
+    is kept, and a later call of the same shapes replays it from the
+    first block. `stop` (a `threading.Event`), once set, makes the call
+    raise `Stopped` at its next poll.
     """
     return _simulate(mode, params, wls, tree, rate_threshold, telemetry,
                      params.exec_pe.device.type == "cuda", plan, step_budget,

@@ -6,7 +6,9 @@ A campaign's spans are well formed (each inside its parent, the chunks'
 attempts as run), leave the results bit for bit those of `run_batch`,
 keep a failed attempt, and carry the stats' seconds; the engine's graph
 path, with the capture stood in for by an eager block, times one eager
-block, one capture and one stretch of replays a call.
+block, one capture and one stretch of replays the first call of a shape,
+and a setup and one stretch of replays each later call, which replays
+the kept graph (its record's `graph` is "hit").
 """
 import functools
 
@@ -36,6 +38,14 @@ def _one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _no_kept_graphs():
+    """Each test starts and ends with no captured block kept."""
+    sim.clear_graph_cache()
+    yield
+    sim.clear_graph_cache()
 
 
 @functools.lru_cache(maxsize=None)
@@ -139,11 +149,22 @@ def test_graph_path_spans_one_capture_a_call(mode, plans, monkeypatch):
         batch_size=2, plan=_plans() if plans else None, device="cpu",
         telemetry=tel))
     assert len(tel) == 3
+    # the first part of a key captures, the next ones replay its graph
+    # (the fault phases and the drops' `W` that a part builds are keys)
+    assert tel[0]["graph"] == "captured"
+    if not plans:
+        assert [r["graph"] for r in tel[1:]] == ["hit", "hit"]
     for rec in tel:
         names = [n for n, _, _ in rec["spans"]]
-        assert names == list(sim.ENGINE_SPANS), names
         blocks = rec["steps"] // sim.POLL_EVERY
-        assert blocks >= 2 and rec["replays"] == blocks - 1, rec
+        if rec["graph"] == "captured":
+            assert names == list(sim.ENGINE_SPANS), names
+            assert blocks >= 2 and rec["replays"] == blocks - 1, rec
+        else:
+            assert rec["graph"] == "hit", rec
+            assert names == ["engine.setup", "engine.replays",
+                             "engine.finalize"], names
+            assert blocks >= 1 and rec["replays"] == blocks, rec
         assert rec["spans"][0][1] == rec["start_ns"]
         for (_, a0, a1), (_, b0, b1) in zip(rec["spans"], rec["spans"][1:]):
             assert a0 <= a1 == b0 <= b1
@@ -153,7 +174,9 @@ def test_graph_path_spans_one_capture_a_call(mode, plans, monkeypatch):
 @pytest.mark.parametrize("batch", [2, 5], ids=["3-chunks", "1-chunk"])
 def test_campaign_counts_graph_replays(batch, monkeypatch):
     """On the graph path the campaign's stats carry the engine calls'
-    replays, and each chunk times one capture and the copy back."""
+    replays, captures and hits: the first chunk captures and times one
+    eager block, the others replay its kept graph; each chunk times the
+    copy back."""
     monkeypatch.setattr(sim, "_capture", _stand_in_capture)
     monkeypatch.setattr(sim, "simulate_batch",
                         functools.partial(sim._simulate, graph=True))
@@ -162,10 +185,12 @@ def test_campaign_counts_graph_replays(batch, monkeypatch):
     _assert_well_formed(spans)
     names = [s.name for s in spans]
     n = st["n_chunks"]
-    for one in ("engine.capture", "engine.replays", "campaign.to_host"):
+    for one in ("engine.replays", "campaign.to_host"):
         assert names.count(one) == n, one
-    assert names.count("engine.eager_block") == n
-    assert st["replays"] == st["steps"] // sim.POLL_EVERY - n > 0
+    assert st["captures"] == 1 and st["graph_hits"] == n - 1
+    assert names.count("engine.capture") == st["captures"]
+    assert names.count("engine.eager_block") == st["captures"]
+    assert st["replays"] == st["steps"] // sim.POLL_EVERY - 1 > 0
     _assert_bit_exact(_ref(sim.MODE_ETF), out.result)
 
 
