@@ -4,7 +4,7 @@ the plain reference.
 Each sampled scenario's results as the program returned them (`Row`)
 are held to `reference/ref_sim.py` run on the same inputs. A cell
 compares the numbers its limits file (`limits/<workload>.json`) names,
-each against its own limit. Two are the worst over the sample; the
+each against its own limit. Three are the worst over the sample; the
 others are pooled over the sample, since one near-tie broken the other
 way in float32 (against the reference's float64) reroutes the rest of
 one congested scenario's schedule, and a number of one scenario swings
@@ -12,6 +12,8 @@ with that while the pool does not:
 
   avg_exec_rel  worst |avg_exec_us - ref| / ref (the paper's latency)
   sched_rel     worst |sched_time_us - ref| / ref (the decisions' latency)
+  sched_energy_rel  worst |sched_energy_uj - ref| / ref (the decisions'
+                energy, under DAS the classifier's with it)
   energy_gap    sum of |total_energy_uj - ref task + scheduling energy|
                 over the sum of the reference's
   finish_off    share of the sample's tasks whose finish is off the
@@ -31,8 +33,8 @@ import numpy as np
 FAULT_COUNTS = ("n_faults", "n_retries", "n_dropped_jobs",
                 "n_dropped_tasks", "n_recovered")
 # the program's result fields a sampled row keeps
-ROW_FIELDS = ("avg_exec_us", "total_energy_uj", "sched_time_us", "finish",
-              "n_iters") + FAULT_COUNTS
+ROW_FIELDS = ("avg_exec_us", "total_energy_uj", "sched_time_us",
+              "sched_energy_uj", "finish", "n_iters") + FAULT_COUNTS
 
 
 class Row(NamedTuple):
@@ -69,6 +71,8 @@ def numbers(out: Dict[str, np.ndarray], ref: dict,
                              float(ref["avg_exec_us"])),
         "sched_rel": _rel(float(out["sched_time_us"]),
                           float(ref["sched_time_us"])),
+        "sched_energy_rel": _rel(float(out["sched_energy_uj"]),
+                                 float(ref["sched_energy_uj"])),
         "energy_diff": abs(float(out["total_energy_uj"]) - energy_ref),
         "energy_ref": energy_ref,
         "tasks": n_tasks,
@@ -86,7 +90,7 @@ def readings(per_row: List[Dict[str, float]]) -> Dict[str, float]:
            ("energy_diff", "energy_ref", "tasks", "tasks_off",
             "counts_gap", "counts_ref")}
     out = {k: max(r[k] for r in per_row)
-           for k in ("avg_exec_rel", "sched_rel")}
+           for k in ("avg_exec_rel", "sched_rel", "sched_energy_rel")}
     out["energy_gap"] = tot["energy_diff"] / max(tot["energy_ref"], 1e-30)
     out["finish_off"] = tot["tasks_off"] / max(1, tot["tasks"])
     out["fault_gap"] = tot["counts_gap"] / max(1, tot["counts_ref"])

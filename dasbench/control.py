@@ -45,7 +45,7 @@ def run(spec: dict, seed: int, n_sweeps: int) -> dict:
             sw = tr.sweep(seed, row.sweep)
         wl, plan = inputs.scenario(sw, row.lane)
         b = ref_sim.simulate_ref(ref_sim.MODES[sw.mode], wl, soc, plan,
-                                 precision="bfloat16")
+                                 precision="bfloat16", policy=sw.policy)
         outs.append({**b, "total_energy_uj": b["task_energy_uj"]
                      + b["sched_energy_uj"]})
     per = harness.reference_numbers(tr, seed, sample, outputs=outs)

@@ -134,7 +134,7 @@ def run(spec: dict, seed: int, seconds: float, traced: bool,
     # warm-up: a sweep of each mode at the cell's shapes
     for i in range(tr.cycle):
         sw = tr.sweep(seed, inputs.WARMUP - tr.cycle + 1 + i)
-        prog.sweep(sw.mode, sw.wl, sw.plan, batch)
+        prog.sweep(sw.mode, sw.wl, sw.plan, batch, sw.policy)
     cuda = device == "cuda"
     if cuda:
         torch.cuda.synchronize()
@@ -166,7 +166,8 @@ def run(spec: dict, seed: int, seconds: float, traced: bool,
         with trace.span(on, "draw"):
             sw = tr.sweep(seed, k)
         with trace.span(on, "run_campaign"):
-            res, stats = prog.sweep(sw.mode, sw.wl, sw.plan, batch)
+            res, stats = prog.sweep(sw.mode, sw.wl, sw.plan, batch,
+                                    sw.policy)
         with trace.span(on, "keep"):
             S = int(res.n_done.shape[0])
             lanes = set(inputs.rng(seed, k, inputs.SAMPLE).choice(
@@ -186,6 +187,8 @@ def run(spec: dict, seed: int, seconds: float, traced: bool,
             "lane_trips": stats["lane_trips"],
             "active_trips": stats["active_trips"],
             "steps": stats["steps"], "wall_s": te - ts,
+            "decisions": int(np.asarray(res.n_decisions, np.int64).sum()),
+            "slow": int(np.asarray(res.n_slow, np.int64).sum()),
             "chunk_lanes": -(-S // stats["n_chunks"]),
             "plan": sw.plan is not None, "traced": tracing})
         del res
@@ -261,7 +264,8 @@ def reference_numbers(tr: inputs.Traffic, seed: int,
         if sw is None or sw.index != row.sweep:
             sw = tr.sweep(seed, row.sweep)
         wl, plan = inputs.scenario(sw, row.lane)
-        ref = ref_sim.simulate_ref(ref_sim.MODES[sw.mode], wl, soc, plan)
+        ref = ref_sim.simulate_ref(ref_sim.MODES[sw.mode], wl, soc, plan,
+                                   policy=sw.policy)
         out = row.out if outputs is None else outputs[i]
         per.append(check.numbers(out, ref, int(wl.n_tasks)))
     return per

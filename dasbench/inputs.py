@@ -3,22 +3,24 @@
 A configuration file (`configs/<name>.json`) gives the SoC's tables, the
 apps, the mixes, the rates, the frames a scenario and, for a faulty
 deployment, the fault model. A traffic file (`traffic/<name>.json`)
-gives the scheduler modes a sweep cycles through and the shape of a
-sweep: `grid` (every mix at every rate) or `row` (one mix at every rate,
-the mixes in order). Sweep `k` of a run draws its arrivals, and its
-fault plans, from `(seed, k)`, so no sweep of a run repeats another's
-inputs and the same seed gives the same inputs. Both sides get the same
-arrays: the program as its own types (`harness`), the reference as they
-are here.
+gives the scheduler modes a sweep cycles through, the shape of a sweep:
+`grid` (every mix at every rate) or `row` (one mix at every rate, the
+mixes in order), and, for a mode whose decisions a policy makes (DAS),
+that policy under `policy` and the mode's name. Sweep `k` of a run
+draws its arrivals, and its fault plans, from `(seed, k)`, so no sweep
+of a run repeats another's inputs and the same seed gives the same
+inputs. Both sides get the same arrays: the program as its own types
+(`harness`), the reference as they are here.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import numpy as np
 
-from dasbench.reference import dfg, workloads
+from dasbench.reference import dfg, ref_sim, workloads
 
 # streams of a sweep's generator: arrivals, fault plans, the check's sample
 ARRIVALS, PLANS, SAMPLE = 0, 1, 2
@@ -38,6 +40,54 @@ class FaultPlan(NamedTuple):
     deadline_us: np.ndarray       # [S] f32
 
 
+class Policy(NamedTuple):
+    """A DAS policy as its traffic file states it: a depth-2 tree in the
+    port's `DTree` layout (`feat` [3] feature indices, `thr` [3], `leaf`
+    [4] in {0 fast, 1 slow}; a `null` threshold in the file is an
+    infinite one, a pass-through node), and one line on how the tree was
+    obtained."""
+
+    feat: tuple
+    thr: tuple
+    leaf: tuple
+    fitted: str
+
+
+def policy(mode: str, p: dict) -> Policy:
+    """The traffic file's policy for `mode`, checked: every node that is
+    not a pass-through reads the paper's pair (rate, the big cluster's
+    earliest availability), every threshold is a float32 value written
+    exactly, and every leaf picks a scheduler."""
+    if set(p) != set(Policy._fields):
+        raise ValueError(f"{mode} policy keys {sorted(p)}; expected "
+                         f"{sorted(Policy._fields)}")
+    feat, thr, leaf = list(p["feat"]), list(p["thr"]), list(p["leaf"])
+    if len(feat) != 3 or len(thr) != 3 or len(leaf) != 4:
+        raise ValueError(f"{mode} policy: feat [3], thr [3], leaf [4]")
+    for f, t in zip(feat, thr):
+        if type(f) is not int:
+            raise ValueError(f"{mode} policy feature {f!r}")
+        if t is None:
+            continue
+        if f not in (ref_sim.FEAT_RATE, ref_sim.FEAT_BIG_AVAIL):
+            raise ValueError(f"{mode} policy reads feature {f}; the "
+                             "reference knows the paper's pair, "
+                             f"{ref_sim.FEAT_RATE} and "
+                             f"{ref_sim.FEAT_BIG_AVAIL}")
+        if (not isinstance(t, (int, float)) or not math.isfinite(t)
+                or float(np.float32(t)) != t):
+            raise ValueError(f"{mode} policy threshold {t!r} is not a "
+                             "finite float32 value")
+    if any(v not in (0, 1) or type(v) is not int for v in leaf):
+        raise ValueError(f"{mode} policy leaves {leaf}")
+    fitted = p["fitted"]
+    if not isinstance(fitted, str) or not fitted or "\n" in fitted:
+        raise ValueError(f"{mode} policy: `fitted` is one line")
+    return Policy(tuple(feat),
+                  tuple(math.inf if t is None else float(t) for t in thr),
+                  tuple(leaf), fitted)
+
+
 def rng(seed: int, sweep: int, stream: int) -> np.random.Generator:
     """The generator of one stream of one sweep; `seed` may be any whole
     number (taken modulo 2**64)."""
@@ -52,6 +102,7 @@ class Sweep:
     mode: str                     # "LUT", "ETF", ...
     wl: workloads.FlatWorkload    # stacked, [S] leading
     plan: FaultPlan | None
+    policy: Policy | None         # the mode's policy, DAS only
 
 
 class Traffic:
@@ -67,6 +118,15 @@ class Traffic:
             raise ValueError("the generator's frames are 1 kbit")
         self.config, self.traffic = config, traffic
         self.modes = list(traffic["modes"])
+        for m in self.modes:
+            if m not in ref_sim.MODES:
+                raise ValueError(f"mode {m!r}; the reference knows "
+                                 f"{sorted(ref_sim.MODES)}")
+        self.policies = {m: policy(m, p)
+                         for m, p in traffic.get("policy", {}).items()}
+        if not set(self.policies) <= set(self.modes):
+            raise ValueError(f"policies for {sorted(self.policies)}; the "
+                             f"traffic runs {self.modes}")
         self.shape = traffic["shape"]
         if self.shape not in ("grid", "row"):
             raise ValueError(f"traffic shape {self.shape!r}")
@@ -111,7 +171,8 @@ class Traffic:
         plan = None
         if self.config.get("faults"):
             plan = fault_plans(self.config, rng(seed, k, PLANS), S)
-        return Sweep(k, self.modes[k % len(self.modes)], wl, plan)
+        mode = self.modes[k % len(self.modes)]
+        return Sweep(k, mode, wl, plan, self.policies.get(mode))
 
 
 def fault_plans(config: dict, g: np.random.Generator, S: int) -> FaultPlan:

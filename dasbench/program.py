@@ -8,6 +8,7 @@ the reference never does.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.bench import common
 from repro_torch.core import campaign, faults, simulator as sim, soc
@@ -46,6 +47,7 @@ class Program:
         self.device = device
         self.params = sim.make_params(soc_config(config), device=device)
         self.modes = {v: k for k, v in sim.MODE_NAMES.items()}
+        self._trees = {}
 
     def chunk(self) -> int:
         """The chunk size every sweep of the port's benchmark pipeline
@@ -53,14 +55,30 @@ class Program:
         read from its cache)."""
         return common.batch_size(self.device)
 
-    def sweep(self, mode: str, wl, plan, batch: int):
+    def tree(self, policy) -> sim.DTree:
+        """A policy's tree (`inputs.Policy`) as the port's `DTree`, on the
+        device; made at its first sweep (the warm-up) and kept."""
+        if policy not in self._trees:
+            dev = self.params.exec_pe.device
+            self._trees[policy] = sim.DTree(
+                feat=torch.tensor(policy.feat, dtype=torch.int32, device=dev),
+                thr=torch.tensor(policy.thr, dtype=torch.float32, device=dev),
+                leaf=torch.tensor(policy.leaf, dtype=torch.int32, device=dev))
+        return self._trees[policy]
+
+    def sweep(self, mode: str, wl, plan, batch: int, policy=None):
         """One sweep through `campaign.run_campaign`: (host numpy result,
-        campaign stats)."""
+        campaign stats). DAS runs the policy's tree and refuses to run
+        without one, where the port would fall back to its always-fast
+        tree; no other mode takes one."""
+        if (self.modes[mode] == sim.MODE_DAS) != (policy is not None):
+            raise ValueError(f"mode {mode} with policy {policy!r}")
         pwl = port_wl.FlatWorkload(*wl)
         pplan = None if plan is None else faults.FaultPlan(*plan)
+        kw = {} if policy is None else {"tree": self.tree(policy)}
         out = campaign.run_campaign(
             self.modes[mode], pwl, self.params, plan=pplan,
-            batch_size=batch, device=self.device)
+            batch_size=batch, device=self.device, **kw)
         return out.result, out.stats
 
     @staticmethod

@@ -11,6 +11,28 @@ scheduling decision, else advance) with plain lists and floats.
 entry to bfloat16 as it is made: the benchmark's control, the reference
 one precision below the float32 that the configurations state.
 
+DAS (`MODE_DAS`, `policy=`): at every decision a depth-2 tree in the
+port's `DTree` layout (`feat` [3], `thr` [3], `leaf` [4]; node 0 the
+root, node 1 its left child, node 2 its right; a feature `>=` its
+threshold goes right; leaf 1 = the slow scheduler) reads two features
+of the state and picks LUT (0) or ETF (1); the decision takes the
+chosen scheduler's latency, and its energy plus the classifier's
+(`CLS_ENERGY_UJ`, the port's constant). The two features are the paper's pair,
+at the port's feature-bank indices:
+  * 0, the input data rate: (n - 1) frames of `FRAME_KBITS` over the
+    span of the last n <= `RATE_RING` arrival times, in Mbps
+    (kbit/us x 1000), 0 before the second arrival; the span is at least
+    1e-3 us,
+  * 2, the big cluster's earliest availability: the least over cluster
+    0's PEs of max(pe_free - now, 0), dead PEs included.
+Departures from the port: every time and feature is float64 (the port's
+are float32, so a feature within float32 rounding of a threshold may
+take the other branch); the two features are worked out from the
+scheduler's state where the port keeps a ring of the last 8 arrival
+times and computes its whole 62-feature bank at every decision; a node
+whose threshold is infinite (pass-through) goes left without reading its
+feature, as the port's does for any finite feature.
+
 Tie-breaking contracts replicated exactly:
   * completions: earliest (finish, task-id),
   * LUT: FIFO head task; earliest-free PE within the LUT cluster
@@ -40,9 +62,15 @@ from typing import Dict, List
 
 import numpy as np
 
+from dasbench.reference.workloads import FRAME_KBITS
+
 # scheduler modes, by the names the configurations and traffic use
-MODES = {"LUT": 0, "ETF": 1, "ETF-ideal": 2}
-MODE_LUT, MODE_ETF, MODE_ETF_IDEAL = 0, 1, 2
+MODES = {"LUT": 0, "ETF": 1, "ETF-ideal": 2, "DAS": 3}
+MODE_LUT, MODE_ETF, MODE_ETF_IDEAL, MODE_DAS = 0, 1, 2, 3
+# the paper's feature pair, at the port's feature-bank indices
+FEAT_RATE, FEAT_BIG_AVAIL = 0, 2
+RATE_RING = 8               # arrival times the rate estimate spans
+CLS_ENERGY_UJ = 0.0019      # the classifier's energy a DAS decision, uJ
 
 
 def bf16(x):
@@ -114,9 +142,12 @@ class Soc:
 
 
 def simulate_ref(mode: int, wl, cfg: Soc, plan=None,
-                 precision: str = "float64") -> Dict:
+                 precision: str = "float64", policy=None) -> Dict:
     """One scenario: `wl` has the fields of a flat workload (plain
-    arrays), `plan` those of a fault plan or None."""
+    arrays), `plan` those of a fault plan or None, `policy` (DAS only)
+    the tree (`feat`, `thr`, `leaf`). Under DAS the result also logs each
+    decision's time, two features and pick (`log_now`, `log_rate`,
+    `log_big_avail`, `log_slow`) and counts the slow picks (`n_slow`)."""
     if precision not in ("float64", "bfloat16"):
         raise ValueError(f"precision {precision!r}")
     q = bf16 if precision == "bfloat16" else _exact
@@ -172,6 +203,34 @@ def simulate_ref(mode: int, wl, cfg: Soc, plan=None,
     job_dropped = np.zeros(n_inst, bool)
     n_kills = n_retries_tot = n_dropped_tasks = n_recovered = 0
     reexec_us = recovery_us = 0.0
+    log_now: List[float] = []
+    log_rate: List[float] = []
+    log_big: List[float] = []
+    log_slow: List[int] = []
+    if mode == MODE_DAS:
+        thr = [q(float(t)) for t in policy.thr]
+        cls_e = q(float(np.float32(CLS_ENERGY_UJ)))
+        big = np.where(pe_cluster == 0)[0]
+
+    def rate_est() -> float:
+        cnt = min(arr_ptr, RATE_RING)
+        if cnt < 2:
+            return 0.0
+        span = max(q(float(wl.inst_arrival[arr_ptr - 1])
+                     - float(wl.inst_arrival[arr_ptr - cnt])), 1e-3)
+        return q((cnt - 1) * float(FRAME_KBITS) * 1000.0 / span)
+
+    def big_avail() -> float:
+        return min(max(q(pe_free[pe] - now), 0.0) for pe in big)
+
+    def das_slow(feats: dict) -> int:
+        """The tree's leaf for the features {index: value}."""
+        def right(node):
+            return bool(np.isfinite(thr[node])
+                        and feats[int(policy.feat[node])] >= thr[node])
+        r0 = right(0)
+        return int(policy.leaf[(2 if r0 else 0)
+                               + int(right(2 if r0 else 1))])
 
     def avail_comm(t: int, pe: int) -> float:
         base = ready_base[t]
@@ -349,6 +408,18 @@ def simulate_ref(mode: int, wl, cfg: Soc, plan=None,
             elif mode == MODE_ETF_IDEAL:
                 choice = etf_choice()
                 lat, e = 0.0, 0.0
+            elif mode == MODE_DAS:
+                feats = {FEAT_RATE: rate_est(), FEAT_BIG_AVAIL: big_avail()}
+                slow = das_slow(feats)
+                if slow:
+                    choice = etf_choice()
+                    lat = q(float(cfg.etf_latency_us(n)))
+                    e = q(lat * float(cfg.sched_power_w))
+                else:
+                    choice = lut_choice()
+                    lat = q(float(cfg.lut_latency_us))
+                    e = q(float(cfg.lut_energy_uj))
+                e = q(e + cls_e)
             else:
                 raise ValueError(mode)
             if choice is not None:
@@ -368,6 +439,11 @@ def simulate_ref(mode: int, wl, cfg: Soc, plan=None,
                 task_energy = q(task_energy + q(ex * float(pe_power[pe])))
                 sched_energy = q(sched_energy + e)
                 sched_time = q(sched_time + lat)
+                if mode == MODE_DAS:
+                    log_now.append(now)
+                    log_rate.append(feats[FEAT_RATE])
+                    log_big.append(feats[FEAT_BIG_AVAIL])
+                    log_slow.append(slow)
                 continue
         # 6. advance time
         nxt = np.inf
@@ -395,6 +471,13 @@ def simulate_ref(mode: int, wl, cfg: Soc, plan=None,
                                            finish[t])
     inst_exec = q(inst_fin - wl.inst_arrival[:n_inst])
     kept = ~job_dropped
+    das = {} if mode != MODE_DAS else {
+        "n_slow": int(sum(log_slow)),
+        "log_now": np.array(log_now),
+        "log_rate": np.array(log_rate),
+        "log_big_avail": np.array(log_big),
+        "log_slow": np.array(log_slow, np.int8),
+    }
     return {
         "avg_exec_us": q(float(np.mean(inst_exec[kept]))) if kept.any()
         else float("nan"),
@@ -412,4 +495,5 @@ def simulate_ref(mode: int, wl, cfg: Soc, plan=None,
         "recovery_us": recovery_us,
         "n_recovered": n_recovered,
         "job_dropped": job_dropped,
+        **das,
     }

@@ -113,7 +113,7 @@ def measure(spec: dict, seed: int, sweeps: int, device: str,
     batch = prog.chunk()
     for i in range(tr.cycle):
         sw = tr.sweep(seed, inputs.WARMUP - tr.cycle + 1 + i)
-        prog.sweep(sw.mode, sw.wl, sw.plan, batch)
+        prog.sweep(sw.mode, sw.wl, sw.plan, batch, sw.policy)
     cuda = device == "cuda"
     if cuda:
         torch.cuda.synchronize()
@@ -121,7 +121,7 @@ def measure(spec: dict, seed: int, sweeps: int, device: str,
     untraced = []
     for sw in sws:
         t0 = time.perf_counter()
-        _, stats = prog.sweep(sw.mode, sw.wl, sw.plan, batch)
+        _, stats = prog.sweep(sw.mode, sw.wl, sw.plan, batch, sw.policy)
         untraced.append((time.perf_counter() - t0, stats["spans"]))
     out = []
     for k, (sw, (wall, plain)) in enumerate(zip(sws, untraced)):
@@ -129,7 +129,8 @@ def measure(spec: dict, seed: int, sweeps: int, device: str,
         sl.start()
         t0 = time.perf_counter()
         with sl.span("run_campaign"):
-            _, traced_stats = prog.sweep(sw.mode, sw.wl, sw.plan, batch)
+            _, traced_stats = prog.sweep(sw.mode, sw.wl, sw.plan, batch,
+                                         sw.policy)
         traced_wall = time.perf_counter() - t0
         results, spans = sl.stop()
         traced = self_ns(traced_stats["spans"])

@@ -87,6 +87,30 @@ def test_every_cell_resolves(name):
         assert callable(harness.reader(m["name"]))
 
 
+@pytest.mark.parametrize("traffic", sorted(
+    p.name for p in (ROOT / "dasbench" / "traffic").glob("*.json")))
+def test_a_policy_is_written_in_float32(traffic):
+    """A traffic's DAS policy: each threshold is written as the float32
+    value the port compares with."""
+    import numpy as np
+
+    t = json.loads((ROOT / "dasbench" / "traffic" / traffic).read_text())
+    for mode, p in t.get("policy", {}).items():
+        assert mode == "DAS" and mode in t["modes"]
+        for v in p["thr"]:
+            assert v is None or float(np.float32(v)) == v, v
+
+
+def test_the_reference_charges_the_ports_classifier_energy():
+    """The reference's classifier energy a DAS decision is the port's
+    constant, as float32."""
+    import numpy as np
+    from dasbench.reference import ref_sim
+    from repro_torch.core import soc
+
+    assert np.float32(ref_sim.CLS_ENERGY_UJ) == soc.DAS_CLS_ENERGY_UJ
+
+
 def _imports(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):

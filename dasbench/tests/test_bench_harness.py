@@ -1,7 +1,8 @@
 """The harness driven on the CPU at a small size: each cell comes out
 correct; with the timed path broken underneath, `correct` comes out
 false; the control (the reference in bfloat16 in the program's place)
-comes out false; a cell added as new files is found by name."""
+comes out false; a cell added as new files is found by name; a traffic's
+policy is checked and reaches the program as the call it was before."""
 import json
 import shutil
 import subprocess
@@ -10,9 +11,11 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
-from dasbench import control, harness, trace
-from repro_torch.core import campaign, simulator as sim
+from dasbench import control, harness, inputs, trace
+from dasbench.program import Program
+from repro_torch.core import campaign, simulator as sim, soc
 
 from dasbench.tests.conftest import ROOT, STRESS_FAULTS
 
@@ -21,6 +24,7 @@ CELLS = [w["name"] for w in json.loads(
 # the grid under a fault plan a scenario, ETF and LUT in turns: the
 # harness's plan path, which no cell drives yet
 STRESSED = "stressed.mixed-grid"
+DAS = "healthy.das-grid"
 SEED = 2**31 + 4099
 
 
@@ -101,12 +105,135 @@ FAULTS = {
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("name", ["healthy.etf-grid", STRESSED])
+@pytest.mark.parametrize("name", ["healthy.etf-grid", STRESSED, DAS])
 def test_broken_timed_path_is_not_correct(name, fault, small_batch,
                                           monkeypatch):
     FAULTS[fault](monkeypatch)
     out = run_small(name, frames=4)
     assert out["correct"] is False, (fault, out["check"])
+
+
+def _rate_halved(real):
+    """The feature bank's rate estimate halved where it is made."""
+    def features(*a, **k):
+        f = real(*a, **k)
+        return torch.cat([f[:, :1] * 0.5, f[:, 1:]], 1)
+    return features
+
+
+def _tree_changed(real, change):
+    """`run_campaign` given the harness's tree changed underneath."""
+    def run(*a, **k):
+        k = dict(k)
+        tree = change(k.pop("tree"))
+        return real(*a, **k) if tree is None else real(*a, tree=tree, **k)
+    return run
+
+
+DAS_FAULTS = {
+    "rate_halved": lambda mp: mp.setattr(sim, "_features",
+                                         _rate_halved(sim._features)),
+    "leaves_inverted": lambda mp: mp.setattr(campaign, "run_campaign",
+                                             _tree_changed(
+        campaign.run_campaign, lambda t: t._replace(leaf=1 - t.leaf))),
+    # the port's own fallback, the always-fast tree
+    "policy_dropped": lambda mp: mp.setattr(campaign, "run_campaign",
+                                            _tree_changed(
+        campaign.run_campaign, lambda t: None)),
+    # `_decide` charges no classifier energy
+    "classifier_energy_dropped": lambda mp: mp.setattr(
+        soc, "DAS_CLS_ENERGY_UJ", np.float32(0.0)),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(DAS_FAULTS))
+def test_broken_das_policy_is_not_correct(fault, small_batch, monkeypatch):
+    DAS_FAULTS[fault](monkeypatch)
+    out = run_small(DAS)
+    assert out["correct"] is False, (fault, out["check"])
+
+
+def test_sweep_without_a_policy_makes_the_call_it_made_before(monkeypatch):
+    """A mode without a policy passes `run_campaign` the mode, the
+    workload, the params, the plan, the chunk size and the device, and
+    nothing else; DAS adds its policy's tree, made once; a DAS sweep
+    without a policy, or a policy for another mode, is refused."""
+    calls = []
+
+    class Out:
+        result = stats = None
+
+    monkeypatch.setattr(campaign, "run_campaign",
+                        lambda *a, **k: calls.append((a, k)) or Out)
+    cfg = small("healthy.etf-grid")["config"]
+    prog = Program(cfg, "cpu")
+    das = inputs.Traffic(cfg, small(DAS)["traffic"]).sweep(SEED, 0)
+    sw = inputs.Traffic(cfg, small("healthy.etf-grid")["traffic"]).sweep(
+        SEED, 0)
+    prog.sweep(sw.mode, sw.wl, sw.plan, 64, sw.policy)
+    prog.sweep(das.mode, das.wl, das.plan, 64, das.policy)
+    prog.sweep(das.mode, das.wl, das.plan, 64, das.policy)
+    (a, k), (a_das, k_das), (_, k_again) = calls
+    assert k_again["tree"] is k_das["tree"]
+    assert len(a) == 3 and a[0] == sim.MODE_ETF and a[2] is prog.params
+    assert all(np.array_equal(x, y) for x, y in zip(a[1], sw.wl))
+    assert k == {"plan": None, "batch_size": 64, "device": "cpu"}
+    assert a_das[0] == sim.MODE_DAS
+    tree = k_das.pop("tree")
+    assert k_das == k
+    assert tree.feat.tolist() == list(das.policy.feat)
+    assert tree.thr.tolist() == list(das.policy.thr)
+    assert tree.leaf.tolist() == list(das.policy.leaf)
+    with pytest.raises(ValueError):
+        prog.sweep("DAS", das.wl, None, 64)
+    with pytest.raises(ValueError):
+        prog.sweep("ETF", sw.wl, None, 64, das.policy)
+    assert len(calls) == 3
+
+
+def _das_traffic(**change):
+    t = json.loads((ROOT / "dasbench" / "traffic" / "das-grid.json")
+                   .read_text())
+    t["policy"]["DAS"].update(change)
+    return t
+
+
+BAD_POLICIES = {
+    "a node reads another feature": dict(feat=[5, 0, 0]),
+    "a threshold that is no float32": dict(thr=[0.1, None, None]),
+    "an infinite threshold written as a number": dict(
+        thr=[float("inf"), None, None]),
+    "a leaf that picks no scheduler": dict(leaf=[0, 2, 0, 1]),
+    "too few leaves": dict(leaf=[0, 1, 1]),
+    "a key the tree does not have": dict(classifier_energy_uj=0.0019),
+    "a fit in two lines": dict(fitted="a\nb"),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_POLICIES))
+def test_a_bad_policy_is_refused(bad):
+    cfg = small(DAS)["config"]
+    with pytest.raises(ValueError):
+        inputs.Traffic(cfg, _das_traffic(**BAD_POLICIES[bad]))
+
+
+def test_a_policy_belongs_to_the_modes_that_run_it():
+    cfg = small(DAS)["config"]
+    # a pass-through node may name any feature: it reads none
+    ok = inputs.Traffic(cfg, _das_traffic(feat=[0, 7, 0],
+                                          thr=[100.0, None, 500.0]))
+    assert ok.sweep(1, 0).policy.thr[1] == float("inf")
+    # DAS without a policy is refused where the sweep would run the
+    # port's always-fast tree
+    no_policy = dict(_das_traffic())
+    del no_policy["policy"]
+    with pytest.raises(ValueError, match="policy None"):
+        harness.run(dict(small(DAS), traffic=no_policy), SEED, 0.2, False,
+                    "cpu", time.perf_counter(), log=lambda *a: None)
+    with pytest.raises(ValueError, match="runs"):
+        inputs.Traffic(cfg, dict(_das_traffic(), modes=["ETF"]))
+    with pytest.raises(ValueError, match="mode"):
+        inputs.Traffic(cfg, dict(_das_traffic(), modes=["DAS", "oracle"]))
 
 
 @pytest.mark.parametrize("name", CELLS + [STRESSED])
@@ -117,19 +244,22 @@ def test_control_is_not_correct(name):
 
 
 def test_cell_added_as_files_is_found_by_name(tmp_path):
-    """A new cell, its traffic, its limits and a new per-layer metric,
+    """New cells, their traffic, their limits and a new per-layer metric,
     each a new file beside the existing ones, with entries added to
-    `BENCHMARK.json`: the harness runs it with no existing file of
-    `dasbench/` edited."""
+    `BENCHMARK.json`: the harness runs them with no existing file of
+    `dasbench/` edited. One is a second DAS traffic, its policy in its
+    own file."""
     shutil.copytree(ROOT / "dasbench", tmp_path / "dasbench",
                     ignore=shutil.ignore_patterns("__pycache__", "out",
                                                   ".cache", "tests"))
     before = {p.relative_to(tmp_path): p.read_bytes()
               for p in (tmp_path / "dasbench").rglob("*") if p.is_file()}
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    bench["workloads"].append({
-        "name": "healthy.lut-rows", "config": "dssoc19-healthy",
-        "traffic": "lut-rows", "chips": 1, "why": "a row under LUT"})
+    bench["workloads"] += [
+        {"name": "healthy.lut-rows", "config": "dssoc19-healthy",
+         "traffic": "lut-rows", "chips": 1, "why": "a row under LUT"},
+        {"name": "healthy.das-rows", "config": "dssoc19-healthy",
+         "traffic": "das-rows", "chips": 1, "why": "a row under DAS"}]
     bench["per_layer"].append({
         "name": "engine.events_per_sweep", "unit": "events",
         "better": "higher", "source": "program_counter", "layer": "engine",
@@ -139,8 +269,15 @@ def test_cell_added_as_files_is_found_by_name(tmp_path):
     (d / "traffic" / "lut-rows.json").write_text(json.dumps({
         "modes": ["LUT"], "shape": "row",
         "check": {"keep_per_sweep": 3, "sample": 6}}))
-    (d / "limits" / "healthy.lut-rows.json").write_text(json.dumps(
-        {"avg_exec_rel": 1e-2, "finish_off": 5e-2}))
+    (d / "traffic" / "das-rows.json").write_text(json.dumps({
+        "modes": ["DAS"], "shape": "row",
+        "check": {"keep_per_sweep": 3, "sample": 6},
+        "policy": {"DAS": {
+            "feat": [0, 2, 0], "thr": [700.0, 0.25, None],
+            "leaf": [0, 1, 1, 1], "fitted": "by hand, for this test"}}}))
+    for cell in ("healthy.lut-rows", "healthy.das-rows"):
+        (d / "limits" / f"{cell}.json").write_text(json.dumps(
+            {"avg_exec_rel": 1e-2, "finish_off": 5e-2}))
     (d / "metrics" / "engine.events_per_sweep.py").write_text(
         "def read(r):\n"
         "    return sum(s['events'] for s in r.sweeps) / len(r.sweeps)\n")
@@ -149,29 +286,35 @@ def test_cell_added_as_files_is_found_by_name(tmp_path):
         f"sys.path[:0] = [{str(tmp_path)!r}, {str(ROOT / 'src')!r}]\n"
         "from dasbench import harness\n"
         "from pathlib import Path\n"
-        "spec = harness.resolve_cell(Path(sys.path[0]), 'healthy.lut-rows')\n"
-        "spec['config'] = dict(spec['config'], frames=4, n_mixes=2)\n"
-        "out = harness.run(spec, 11, 0.1, False, 'cpu', time.perf_counter(),"
-        " log=lambda *a: None)\n"
+        "outs = {}\n"
+        "for cell in ('healthy.lut-rows', 'healthy.das-rows'):\n"
+        "    spec = harness.resolve_cell(Path(sys.path[0]), cell)\n"
+        "    spec['config'] = dict(spec['config'], frames=4, n_mixes=2)\n"
+        "    outs[cell] = harness.run(spec, 11, 0.1, False, 'cpu',"
+        " time.perf_counter(), log=lambda *a: None)\n"
+        "    outs[cell]['per_layer'] = [m['name']"
+        " for m in spec['per_layer']]\n"
         "assert harness.__file__.startswith(sys.path[0]), harness.__file__\n"
-        "layer = [m['name'] for m in spec['per_layer']]\n"
         "r = harness.Readings(spec['cell'], spec['config'], spec['traffic'],"
         " 1.0, 1.0, [{'events': 10}, {'events': 20}], [], None)\n"
-        "out['layer'] = [layer, harness.reader(layer[-1])(r)]\n"
-        "print(json.dumps(out))\n")
+        "outs['layer'] = harness.reader('engine.events_per_sweep')(r)\n"
+        "print(json.dumps(outs))\n")
     env = {"REPRO_BENCH_BATCH": "64", "PATH": "/usr/bin:/bin"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["correct"], out["check"]
+    outs = json.loads(proc.stdout.strip().splitlines()[-1])
+    lut, das = outs["healthy.lut-rows"], outs["healthy.das-rows"]
+    assert lut["correct"], lut["check"]
+    assert das["correct"], das["check"]
     after = {p.relative_to(tmp_path): p.read_bytes()
              for p in (tmp_path / "dasbench").rglob("*")
              if p.is_file() and "__pycache__" not in p.parts}
     assert all(after[p] == b for p, b in before.items())
-    layer, value = out["layer"]
-    assert layer[-1] == "engine.events_per_sweep" and value == 15
+    assert lut["per_layer"][-1] == "engine.events_per_sweep"
+    assert outs["layer"] == 15
+    assert set(das["metrics"]) == set(lut["metrics"])
 
 
 def test_no_gpu_no_result(tmp_path):
@@ -224,7 +367,8 @@ class _FakeSlice:
         return type("R", (), {"events": lambda s: ev})(), self.spans
 
 
-def test_traced_run_reads_idle_against_the_untraced_sweep(small_batch,
+@pytest.mark.parametrize("name", ["healthy.etf-grid", DAS])
+def test_traced_run_reads_idle_against_the_untraced_sweep(name, small_batch,
                                                           monkeypatch,
                                                           tmp_path):
     """A `--trace 1` run sweeps its first inputs untraced, then traced,
@@ -233,14 +377,14 @@ def test_traced_run_reads_idle_against_the_untraced_sweep(small_batch,
     monkeypatch.setattr(harness, "OUT_DIR", tmp_path)
     monkeypatch.setattr(trace, "Slice",
                         lambda: made.append(_FakeSlice()) or made[-1])
-    spec = small("healthy.etf-grid", frames=4)
+    spec = small(name, frames=4)
     out = harness.run(spec, SEED, 0.2, True, "cpu", time.perf_counter(),
                       log=lambda *a: None)
     assert out["correct"], out["check"]
     assert made[0].starts == 1
     assert {s[0] for s in made[0].spans} == {"draw", "run_campaign", "keep",
                                              "slice"}
-    trace_file = json.loads((harness.OUT_DIR / "healthy.etf-grid.trace.json")
+    trace_file = json.loads((harness.OUT_DIR / f"{name}.trace.json")
                             .read_text())
     first, = trace_file["traced_sweeps"]
     assert first["traced"] and first["index"] == 0
@@ -251,3 +395,10 @@ def test_traced_run_reads_idle_against_the_untraced_sweep(small_batch,
     assert m["device.idle_share"] == pytest.approx(
         1 - busy / first["untraced_wall_s"])
     assert m["etf_ft.search_roofline"] > 0
+    if name == DAS:
+        # both sweeps of the window, the untraced and the traced, of the
+        # same inputs
+        sweeps = trace_file["traced_sweeps"]
+        assert m["das.slow_share"] == sweeps[0]["slow"] / sweeps[0][
+            "decisions"]
+        assert 0 < m["das.slow_share"] < 1

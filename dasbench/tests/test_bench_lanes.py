@@ -17,7 +17,7 @@ from dasbench.reference import ref_sim
 from dasbench.tests.conftest import ROOT
 
 SEED = 2**31 + 253
-FIELDS = check.ROW_FIELDS + ("pe_of",)
+FIELDS = check.ROW_FIELDS + ("pe_of", "n_slow")
 
 
 def _rows(res, idx):
@@ -37,7 +37,7 @@ def _equal(a, b, rel_mean=0.0):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("mode", ["ETF", "LUT"])
+@pytest.mark.parametrize("mode", ["ETF", "LUT", "DAS"])
 def test_card_lanes_equal_alone_eager_and_cpu(mode, card):
     from dasbench.program import Program
     from repro_torch.core import simulator as sim
@@ -47,16 +47,23 @@ def test_card_lanes_equal_alone_eager_and_cpu(mode, card):
                      .read_text())
     soc = ref_sim.Soc.from_config(cfg["soc"])
     gpu, cpu = Program(cfg, "cuda"), Program(cfg, "cpu")
-    sw = inputs.Traffic(cfg, {"modes": [mode], "shape": "grid"}).sweep(SEED, 0)
-    full, _ = gpu.sweep(mode, sw.wl, None, 1024)
+    # DAS runs the das-grid cell's tree
+    das = json.loads((ROOT / "dasbench" / "traffic" / "das-grid.json")
+                     .read_text())["policy"]
+    sw = inputs.Traffic(cfg, {"modes": [mode], "shape": "grid",
+                              "policy": das if mode == "DAS" else {}}
+                        ).sweep(SEED, 0)
+    pol = sw.policy
+    full, _ = gpu.sweep(mode, sw.wl, None, 1024, pol)
     # the eight longest lanes, where the gaps sit, and eight across the grid
     longest = np.argsort(-np.asarray(full.n_iters), kind="stable")[:8]
     lanes = np.unique(np.concatenate([longest, np.arange(3, 560, 70)]))
     sub = pwl.FlatWorkload(*[np.asarray(x)[lanes] for x in sw.wl])
-    alone, _ = gpu.sweep(mode, sub, None, 1024)
-    eager = sim.to_numpy(sim._run_batch(sim._simulate_eager, gpu.modes[mode],
-                                        sub, gpu.params, device="cuda"))
-    host, _ = cpu.sweep(mode, sub, None, 1024)
+    alone, _ = gpu.sweep(mode, sub, None, 1024, pol)
+    eager = sim.to_numpy(sim._run_batch(
+        sim._simulate_eager, gpu.modes[mode], sub, gpu.params,
+        tree=None if pol is None else gpu.tree(pol), device="cuda"))
+    host, _ = cpu.sweep(mode, sub, None, 1024, pol)
     n = len(lanes)
     a_full, a_alone = _rows(full, lanes), _rows(alone, range(n))
     a_eager, a_cpu = _rows(eager, range(n)), _rows(host, range(n))
@@ -74,7 +81,8 @@ def test_card_lanes_equal_alone_eager_and_cpu(mode, card):
     for i, j in enumerate(lanes):
         wl, _ = inputs.scenario(sw, int(j))
         nt = int(wl.n_tasks)
-        ref = ref_sim.simulate_ref(ref_sim.MODES[mode], wl, soc)
+        ref = ref_sim.simulate_ref(ref_sim.MODES[mode], wl, soc,
+                                   policy=pol)
         cols = []
         for tag, out in (("card", a_full[i]), ("cpu", a_cpu[i])):
             num = check.numbers(out, ref, nt)

@@ -1,15 +1,19 @@
 """The frozen generator and reference against the port's own copies:
 equal arrays, and equal simulations in every mode the cells use, with
-and without fault plans."""
+and without fault plans; the reference's DAS against its LUT and ETF and
+against the port's simulator decision by decision."""
 import json
+import math
 
 import numpy as np
 import pytest
+import torch
 
 from dasbench import inputs
 from dasbench.reference import dfg, ref_sim, workloads
 from repro_torch.core import dfg as pdfg, faults as pfaults
 from repro_torch.core import ref_sim as pref, soc as psoc
+from repro_torch.core import simulator as psim
 from repro_torch.core import workloads as pwl
 
 from dasbench.tests.conftest import ROOT, STRESS_FAULTS
@@ -19,6 +23,11 @@ HEALTHY = json.loads((ROOT / "dasbench" / "configs" / "dssoc19-healthy.json")
 CONFIGS = {"dssoc19-healthy": HEALTHY,
            "stressed": dict(HEALTHY, faults=STRESS_FAULTS)}
 MODES = {"LUT": 0, "ETF": 1, "ETF-ideal": 2}
+DAS_POLICY = inputs.policy("DAS", json.loads(
+    (ROOT / "dasbench" / "traffic" / "das-grid.json").read_text())
+    ["policy"]["DAS"])
+# rates high, either side of the tree's cut (466.6 Mbps), low
+DAS_CELLS = ((0, 13), (4, 5), (5, 4), (21, 2))
 
 
 def _same(a, b, tag):
@@ -151,3 +160,84 @@ def test_bf16_rounding():
     assert got[2] == 1.0078125
     assert got[3] == 300.0 and np.isinf(got[4]) and got[5] == -2.5
     assert ref_sim.bf16(300.7) == 300.0
+
+
+@pytest.mark.parametrize("slow", [0, 1])
+def test_das_with_a_constant_tree_is_lut_or_etf(slow):
+    """A tree that always picks one scheduler schedules as that
+    scheduler, bit for bit, and adds the classifier's energy a
+    decision."""
+    soc = ref_sim.Soc.from_config(CONFIGS["dssoc19-healthy"]["soc"])
+    suite = workloads.default_suite(n_instances=10)
+    tree = DAS_POLICY._replace(feat=(0, 0, 0), thr=(math.inf,) * 3,
+                               leaf=(slow,) * 4)
+    cls_e = float(np.float32(ref_sim.CLS_ENERGY_UJ))
+    for cell in DAS_CELLS:
+        wl = suite.build(*cell)
+        das = ref_sim.simulate_ref(ref_sim.MODE_DAS, wl, soc, policy=tree)
+        base = ref_sim.simulate_ref(
+            ref_sim.MODE_ETF if slow else ref_sim.MODE_LUT, wl, soc)
+        for k in ("finish", "pe_of", "avg_exec_us", "task_energy_uj",
+                  "sched_time_us"):
+            x, y = np.asarray(das[k]), np.asarray(base[k])
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), \
+                (slow, cell, k)
+        n = len(das["log_slow"])
+        assert n == int(wl.n_tasks) and das["n_slow"] == slow * n
+        # the same sum in another order: float64 rounding alone
+        assert das["sched_energy_uj"] == pytest.approx(
+            base["sched_energy_uj"] + n * cls_e, rel=1e-12)
+
+
+def test_das_features_and_picks_equal_the_ports():
+    """On four small cells, decision by decision, the reference's rate
+    and big-cluster availability equal the port's feature bank
+    (`log_feat[..., 0]`, `[..., 2]`) and its picks the port's
+    `log_policy`, under the frozen tree."""
+    soc = ref_sim.Soc.from_config(CONFIGS["dssoc19-healthy"]["soc"])
+    suite = workloads.default_suite(n_instances=10)
+    psuite = pwl.default_suite(n_instances=10)
+    params = psim.make_params(device="cpu")
+    tree = psim.DTree(
+        torch.tensor(DAS_POLICY.feat, dtype=torch.int32),
+        torch.tensor(DAS_POLICY.thr, dtype=torch.float32),
+        torch.tensor(DAS_POLICY.leaf, dtype=torch.int32))
+    thr = [t for t in DAS_POLICY.thr if math.isfinite(t)]
+    picks = slow = near_misses = 0
+    for cell in DAS_CELLS:
+        ref = ref_sim.simulate_ref(ref_sim.MODE_DAS, suite.build(*cell), soc,
+                                   policy=DAS_POLICY)
+        res = psim.to_numpy(psim.run(psim.MODE_DAS, psuite.build(*cell),
+                                     params, tree=tree, device="cpu"))
+        n = int(res.n_decisions)
+        port_slow = np.asarray(res.log_policy).reshape(-1)[:n]
+        miss = np.flatnonzero(port_slow != ref["log_slow"][:n])
+        # a pick that differs changes the schedule from there on: compare
+        # up to the first, which has to be a near tie at a threshold
+        m = int(miss[0]) + 1 if miss.size else n
+        if not miss.size:
+            assert n == len(ref["log_slow"])
+            assert int(res.n_slow) == ref["n_slow"]
+        feat = np.asarray(res.log_feat, np.float64).reshape(-1, 62)[:m]
+        rate, avail = ref["log_rate"][:m], ref["log_big_avail"][:m]
+        # The port's times and features are float32, the reference's
+        # float64: 1e-5 relative. The availability is a difference of two
+        # times (a PE's free time less `now`), so its rounding is that of
+        # the times: 1e-5 of the feature or of `now`, the larger.
+        np.testing.assert_allclose(feat[:, 0], rate, rtol=1e-5, atol=0,
+                                   err_msg=str(cell))
+        gap = np.abs(feat[:, 2] - avail)
+        scale = np.maximum(np.abs(avail), ref["log_now"][:m])
+        assert (gap <= 1e-5 * scale).all(), (cell, gap.max())
+        if miss.size:
+            f = (rate[-1], avail[-1])
+            assert any(abs(v - t) <= 1e-5 * max(abs(t), 1.0)
+                       for v in f for t in thr), (cell, m - 1, f)
+            near_misses += 1
+        n = m
+        picks += n
+        slow += int(ref["log_slow"][:n].sum())
+    print(f"{picks} picks, {slow} slow, {near_misses} missed at a "
+          "threshold")
+    # the tree mixes both schedulers on these cells
+    assert 0 < slow < picks
