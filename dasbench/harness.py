@@ -16,6 +16,10 @@ sample of the window's scenarios, drawn from the seed, to the plain
 reference (`check`), and the run prints its result as one JSON line.
 With `--trace 1` the window's first sweep is traced (`trace`) and the
 line carries the per-layer metrics instead of the end-to-end ones.
+
+That is the DSSoC lane, a configuration file without `kind` or with
+`kind` "dssoc". A configuration of `kind` "lm" runs the language-model
+lane (`lm_lane`) through the same command, files and result line.
 """
 from __future__ import annotations
 
@@ -121,6 +125,9 @@ def run(spec: dict, seed: int, seconds: float, traced: bool,
     """One run of a cell: set-up, window, check. Returns the result
     line's object. `device` is "cuda" for a benchmark run; the tests
     drive the same path on the CPU at a small size."""
+    if spec["config"].get("kind", "dssoc") == "lm":
+        from dasbench import lm_lane
+        return lm_lane.run(spec, seed, seconds, traced, device, t_start, log)
     import torch
     from dasbench.program import Program
 
@@ -202,8 +209,6 @@ def run(spec: dict, seed: int, seconds: float, traced: bool,
         if k % tr.cycle == 0 and te - t0 >= seconds:
             break
     window_s = te - t0
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
-    name = torch.cuda.get_device_name(0) if cuda else "cpu"
     summary = None
     if results is not None:
         tq = time.perf_counter()
@@ -211,8 +216,6 @@ def run(spec: dict, seed: int, seconds: float, traced: bool,
         log(f"# trace: {summary['n_kernels']} kernels in the slice, "
             f"reduced in {time.perf_counter() - tq:.2f}s")
     del results, prog
-    if cuda:
-        torch.cuda.empty_cache()
 
     walls = [s["wall_s"] for s in sweeps]
     log(f"# sweeps: {len(sweeps)} in {window_s:.4f}s; wall s median "
@@ -221,25 +224,10 @@ def run(spec: dict, seed: int, seconds: float, traced: bool,
             f"{s['mode']} {s['wall_s']:.4f}" for s in sweeps))
     r = Readings(spec["cell"], config, traffic, setup_s, window_s, sweeps,
                  [s for s in sweeps if s["traced"]], summary)
-    metrics = {}
-    for m in (spec["per_layer"] if traced else spec["end_to_end"]):
-        v = reader(m["name"])(r)
-        if v is not None:
-            metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
-    out = {"correct": None, "attempted": attempted, "failed": failed,
-           "metrics": metrics,
-           "device": {"platform": "gpu" if cuda else "cpu", "kind": name,
-                      "count": int(spec["cell"]["chips"]),
-                      "memory_peak_bytes": int(peak)}}
-    if summary is not None:
-        out["device"]["busy_s"] = summary["busy_s"]
-        out["device"]["window_s"] = summary["window_s"]
-        out["breakdown"] = trace.breakdown(summary)
-        OUT_DIR.mkdir(exist_ok=True)
-        with open(OUT_DIR / f"{spec['cell']['name']}.trace.json", "w") as f:
-            json.dump({k: v for k, v in summary.items() if k != "gaps"}
-                      | {"longest_gaps": out["breakdown"]["idle_gaps"],
-                         "traced_sweeps": r.traced}, f, indent=1)
+    out = result_line(spec, r, traced, attempted, failed, device,
+                      "traced_sweeps")
+    if cuda:
+        torch.cuda.empty_cache()
     # the check, once the program's state is gone
     sample = check.pick_sample(inputs.rng(seed, inputs.WARMUP,
                                           inputs.SAMPLE),
@@ -249,6 +237,45 @@ def run(spec: dict, seed: int, seconds: float, traced: bool,
                                            failed)
     log(f"# check: {len(sample)} scenarios against the reference in "
         f"{time.perf_counter() - tq:.2f}s")
+    return out
+
+
+def result_line(spec: dict, r, traced: bool, attempted: int, failed: int,
+                device: str, traced_key: str) -> dict:
+    """The result line's object, of either lane, but for its check: the
+    cell's metrics read from `r` (its `Readings`; the per-layer ones in a
+    traced run, else the end-to-end ones), the device and its peak, and
+    with a trace its busy time and breakdown, whose reduction is also
+    written to `out/<cell>.trace.json` beside `r.traced` under
+    `traced_key`. Read before the check, whose reference would raise the
+    device's peak."""
+    import torch
+
+    cuda = device == "cuda"
+    metrics = {}
+    for m in (spec["per_layer"] if traced else spec["end_to_end"]):
+        v = reader(m["name"])(r)
+        if v is not None:
+            metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
+    out = {"correct": None, "attempted": attempted, "failed": failed,
+           "metrics": metrics,
+           "device": {"platform": "gpu" if cuda else "cpu",
+                      "kind": torch.cuda.get_device_name(0) if cuda
+                      else "cpu",
+                      "count": int(spec["cell"]["chips"]),
+                      "memory_peak_bytes": int(
+                          torch.cuda.max_memory_allocated() if cuda
+                          else 0)}}
+    summary = r.trace
+    if summary is not None:
+        out["device"]["busy_s"] = summary["busy_s"]
+        out["device"]["window_s"] = summary["window_s"]
+        out["breakdown"] = trace.breakdown(summary)
+        OUT_DIR.mkdir(exist_ok=True)
+        with open(OUT_DIR / f"{spec['cell']['name']}.trace.json", "w") as f:
+            json.dump({k: v for k, v in summary.items() if k != "gaps"}
+                      | {"longest_gaps": out["breakdown"]["idle_gaps"],
+                         traced_key: r.traced}, f, indent=1)
     return out
 
 

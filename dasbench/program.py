@@ -1,5 +1,7 @@
 """The system under test: the port's sweep entry, fed the benchmark's
-arrays as the port's own types.
+arrays as the port's own types (`Program`), and the port's language
+model, holding the benchmark's weights, with its serving entry points
+(`LMProgram`).
 
 The only module of the benchmark that imports the program
 (`repro_torch`); `harness` imports it once the environment is set, and
@@ -7,12 +9,17 @@ the reference never does.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
-from repro_torch.bench import common
+from repro_torch.bench import common, lm_serve
+from repro_torch.configs import base as model_base
 from repro_torch.core import campaign, faults, simulator as sim, soc
 from repro_torch.core import workloads as port_wl
+from repro_torch.models import lm, transformer
 
 from dasbench.check import ROW_FIELDS
 
@@ -86,3 +93,97 @@ class Program:
         """The fields the check reads, of the given lanes."""
         return [{k: np.asarray(getattr(result, k)[j]).copy()
                  for k in ROW_FIELDS} for j in lanes]
+
+
+# the dataclass of each nested group of the port's `ModelConfig`
+_GROUPS = {"mla": model_base.MLAConfig, "moe": model_base.MoEConfig,
+           "rglru": model_base.RGLRUConfig, "ssd": model_base.SSDConfig}
+
+
+def model_config(block: dict) -> model_base.ModelConfig:
+    """A configuration file's `port` block as the port's `ModelConfig`:
+    its fields by name, a nested group as its dataclass, a list as a
+    tuple."""
+    kw = {k: (_GROUPS[k](**v) if k in _GROUPS and v is not None
+              else tuple(v) if isinstance(v, list) else v)
+          for k, v in block.items()}
+    cfg = model_base.ModelConfig(**kw)
+    cfg.validate()
+    return cfg
+
+
+def _layer(cfg, w: dict, i: int) -> dict:
+    """Layer i of the benchmark's weights (`reference/lm_ref.specs`) in
+    the port's tree: the same tensors, viewed in the port's shapes."""
+    p = f"layers.{i}."
+    H, m = cfg.n_heads, cfg.mla
+    attn = {"w_q": w[p + "q"].view(cfg.d_model, H, -1),
+            "w_dkv": w[p + "kv_a"], "kv_norm": w[p + "kv_norm"],
+            "w_uk": w[p + "k_b"].view(m.kv_lora_rank, H, -1),
+            "w_uv": w[p + "v_b"].view(m.kv_lora_rank, H, -1),
+            "w_kr": w[p + "k_rope"], "wo": w[p + "o"]}
+    if p + "router" in w:
+        mlp = {"router": w[p + "router"],
+               **{f"w_{k}": w[f"{p}experts.{k}"]
+                  for k in ("gate", "up", "down")}}
+        if p + "shared.gate" in w:
+            mlp["shared"] = {f"w_{k}": w[f"{p}shared.{k}"]
+                             for k in ("gate", "up", "down")}
+    else:
+        mlp = {f"w_{k}": w[f"{p}mlp.{k}"] for k in ("gate", "up", "down")}
+    return {"ln1": w[p + "attn_norm"], "attn": attn,
+            "ln2": w[p + "mlp_norm"], "mlp": mlp}
+
+
+class LMProgram:
+    """The port's language model on one device, serving the way the
+    configuration file's `port` block states: `lm.prefill` into the
+    port's caches (with the `port_prefill` fields changed), then
+    `lm.decode_step`s, a MoE at the port's no-drop serving capacity
+    (`bench.lm_serve.serving_config`). Its parameters are the
+    benchmark's weights themselves, viewed, not copied."""
+
+    def __init__(self, config: dict, weights: dict, device: str = "cuda"):
+        if (config["port"].get("attn_impl") != "mla"
+                or config["port"]["mla"]["q_lora_rank"]):
+            raise ValueError("the lane maps MLA blocks without q_lora only")
+        self.device = device
+        self.cfg = lm_serve.serving_config(model_config(config["port"]))
+        self.prefill_cfg = dataclasses.replace(
+            self.cfg, **config.get("port_prefill", {}))
+        stack = transformer.empty_stack(self.cfg)
+        for layers, i, _, idx in transformer.init_order(self.cfg, stack):
+            layers[i] = _layer(self.cfg, weights, idx)
+        self.params = lm.LM({"embed": weights["embed"], "stack": stack,
+                             "final_norm": weights["norm"],
+                             "head": weights["head"]})
+
+    def prefill(self, tokens: torch.Tensor, max_len: int,
+                rows: int | None = None, calls: int | None = None):
+        """(last logits [B, V], caches) of prompts [B, P] in fresh caches
+        of `max_len` positions, in the compute dtype: `lm.prefill` of
+        `rows` requests a call (all by default) into their rows of the
+        caches, the first `calls` calls only where given (a warm-up's;
+        the other rows' logits are then zero)."""
+        B = tokens.shape[0]
+        rows = rows or B
+        caches = lm.init_caches(self.cfg, B, max_len,
+                                dtype=lm.compute_dtype(self.cfg),
+                                device=self.device)
+        if rows >= B:
+            return lm.prefill(self.params, self.prefill_cfg, tokens, caches)
+        last = None
+        for i, b in enumerate(range(0, B, rows)):
+            if calls is not None and i >= calls:
+                break
+            part = pytree.tree_map(lambda t: t[b:b + rows], caches)
+            logits, _ = lm.prefill(self.params, self.prefill_cfg,
+                                   tokens[b:b + rows], part)
+            if last is None:
+                last = logits.new_zeros((B, logits.shape[-1]))
+            last[b:b + rows] = logits
+        return last, caches
+
+    def decode_step(self, token: torch.Tensor, pos: int, caches):
+        """(logits [B, V], caches) of tokens [B] at cache offset `pos`."""
+        return lm.decode_step(self.params, self.cfg, token, pos, caches)

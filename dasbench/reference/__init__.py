@@ -1,3 +1,4 @@
-"""The benchmark's plain reference: frozen copies of the port's DFGs,
-workload generator and float64 sequential simulator, importing nothing
-of the program."""
+"""The benchmark's plain references, importing nothing of the program:
+frozen copies of the port's DFGs, workload generator and float64
+sequential simulator (numpy), and `lm_ref`, the language-model lane's
+float32 forward pass (plain torch)."""

@@ -3,6 +3,7 @@ from the JAX package, and the decision kernel's byte count."""
 import ast
 import json
 import re
+import shutil
 import subprocess
 import sys
 
@@ -39,7 +40,15 @@ def test_benchmark_json_keeps_the_contract():
         assert _line(c["why"]) and c["file"].startswith("dasbench/")
         assert (ROOT / c["file"]).is_file()
         cfg = json.loads((ROOT / c["file"]).read_text())
-        assert cfg["name"] == c["name"] and cfg["time_dtype"] == "float32"
+        assert cfg["name"] == c["name"]
+        if cfg.get("kind", "dssoc") == "dssoc":
+            assert cfg["time_dtype"] == "float32"
+        else:
+            assert cfg["kind"] == "lm" and cfg["source"] == c["source"]
+            assert (ROOT / "dasbench" / "reference"
+                    / f"{cfg['reference']}.py").is_file()
+        assert len(c["reduced"]) <= 16
+        assert all(NAME.match(k) and k in cfg for k in c["reduced"])
         names.add(c["name"])
     pairs = set()
     for w in BENCH["workloads"]:
@@ -131,11 +140,33 @@ def test_no_module_of_the_run_imports_jax_or_the_jax_package():
         assert not tops & FORBIDDEN, (p, tops & FORBIDDEN)
 
 
-def test_the_reference_imports_nothing_of_the_program():
-    for p in (ROOT / "dasbench" / "reference").glob("*.py"):
+def lm_references(root):
+    """The reference modules that the LM configurations of `root`'s
+    `BENCHMARK.json` name."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    cfgs = [json.loads((root / c["file"]).read_text())
+            for c in bench["configs"]]
+    return {c["reference"] for c in cfgs if c.get("kind") == "lm"}
+
+
+def reference_imports_are_plain(root):
+    """Every module under `root`'s `dasbench/reference/` imports only what
+    its lane allows: an LM configuration's reference plain torch, every
+    other module (the DSSoC reference) numpy alone."""
+    lm = lm_references(root)
+    assert lm
+    for p in (root / "dasbench" / "reference").glob("*.py"):
         tops = {m.split(".")[0] for m in _imports(p)}
-        assert tops <= {"__future__", "dataclasses", "typing", "numpy",
-                        "dasbench"}, (p, tops)
+        allowed = {"__future__", "dataclasses", "typing", "numpy",
+                   "dasbench"}
+        if p.stem in lm:
+            allowed = {"__future__", "math", "re", "typing", "torch"}
+        assert tops <= allowed, (p, tops)
+
+
+def test_the_reference_imports_nothing_of_the_program():
+    """The DSSoC reference is numpy alone; the LM lane's is plain torch."""
+    reference_imports_are_plain(ROOT)
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import dasbench.reference.ref_sim, dasbench.reference.workloads\n"
             "import dasbench.check, dasbench.inputs, dasbench.roofline\n"
@@ -145,6 +176,37 @@ def test_the_reference_imports_nothing_of_the_program():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_an_lm_reference_added_as_files_is_allowed_torch(tmp_path):
+    """A later configuration that brings its own LM reference as new
+    files (its module, its configuration naming it, an entry in
+    `BENCHMARK.json`) passes the import rule with no existing file of
+    `dasbench/` edited; a DSSoC module that imports torch still fails."""
+    shutil.copytree(ROOT / "dasbench", tmp_path / "dasbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "out",
+                                                  ".cache"))
+    before = {p.relative_to(tmp_path): p.read_bytes()
+              for p in (tmp_path / "dasbench").rglob("*") if p.is_file()}
+    d = tmp_path / "dasbench"
+    (d / "reference" / "moonlight_ref.py").write_text(
+        (d / "reference" / "lm_ref.py").read_text())
+    cfg = json.loads((d / "configs" / "deepseek-v2-lite-shaped.json")
+                     .read_text())
+    cfg.update(name="moonlight-16b-a3b", reference="moonlight_ref")
+    (d / "configs" / "moonlight-16b-a3b.json").write_text(json.dumps(cfg))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    bench["configs"].append({
+        "name": "moonlight-16b-a3b", "source": cfg["source"],
+        "file": "dasbench/configs/moonlight-16b-a3b.json", "reduced": [],
+        "why": "a second LM configuration with a reference of its own"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    assert lm_references(tmp_path) == {"lm_ref", "moonlight_ref"}
+    reference_imports_are_plain(tmp_path)
+    assert all((tmp_path / p).read_bytes() == b for p, b in before.items())
+    (d / "reference" / "stray.py").write_text("import torch\n")
+    with pytest.raises(AssertionError, match="stray"):
+        reference_imports_are_plain(tmp_path)
 
 
 def test_a_run_loads_no_jax(small_batch):

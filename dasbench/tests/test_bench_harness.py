@@ -19,8 +19,11 @@ from repro_torch.core import campaign, simulator as sim, soc
 
 from dasbench.tests.conftest import ROOT, STRESS_FAULTS
 
+# the DSSoC lane's cells (the LM lane's: `test_bench_lm.py`)
 CELLS = [w["name"] for w in json.loads(
-    (ROOT / "BENCHMARK.json").read_text())["workloads"]]
+    (ROOT / "BENCHMARK.json").read_text())["workloads"]
+    if harness.resolve_cell(ROOT, w["name"])["config"].get(
+        "kind", "dssoc") == "dssoc"]
 # the grid under a fault plan a scenario, ETF and LUT in turns: the
 # harness's plan path, which no cell drives yet
 STRESSED = "stressed.mixed-grid"
