@@ -2623,20 +2623,23 @@ def phase_deepseek() -> dict:
 # ---------------------------------------------------------------------------
 @contextlib.contextmanager
 def _expert_choices():
-    """Record the experts every MoE layer chooses, in call order."""
-    from repro_torch.models import moe
+    """Record the experts every MoE layer chooses, in call order. The
+    record reads each choice on the host, which a captured decode step
+    cannot do, so decode steps run eagerly while it records."""
+    from repro_torch.models import lm, moe
     chosen = []
-    real = moe.router_topk
+    real, capturable = moe.router_topk, lm._capturable
 
     def recorded(logits, k):
         out = real(logits, k)
         chosen.append(out[1].cpu())
         return out
     moe.router_topk = recorded
+    lm._capturable = lambda dev: False
     try:
         yield chosen
     finally:
-        moe.router_topk = real
+        moe.router_topk, lm._capturable = real, capturable
 
 
 def _deepseek_cut_run(p, cfg, toks, prompts, steps: int) -> dict:
@@ -2733,6 +2736,154 @@ def phase_deepseek_cross() -> None:
         if not equal:
             raise AssertionError("bf16 at rest changed the logits")
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 10b: DeepSeek's decode step as a kept CUDA graph, at the LM cell's
+# shapes
+# ---------------------------------------------------------------------------
+GRAPH_LENS = (702, 998)   # the cell's two shortest prompts + 128 steps
+GRAPH_BATCH = 64
+GRAPH_STEPS = 16
+
+
+def _drawn_caches(cfg, L: int, P: int, g):
+    """bf16 caches of L positions for GRAPH_BATCH requests, the first P
+    drawn from `g` (a prefill's stand-in)."""
+    import torch
+    from repro_torch.models import lm
+    caches = lm.init_caches(cfg, GRAPH_BATCH, L, dtype=torch.bfloat16,
+                            device="cuda")
+    for c in lm._layer_caches(caches):
+        for t in c:
+            t[:, :P].normal_(generator=g)
+    return caches
+
+
+def _graph_batches(p, cfg, batches: int, g) -> dict:
+    """`batches` batches of each length of GRAPH_LENS, GRAPH_STEPS steps
+    each, through `lm.decode_step` (the kept graph) and through the eager
+    step at the host int on a copy of the same caches: the logits and the
+    caches bit for bit. Returns each path's ms a step by length, host
+    clock to a synchronise, of the last batch."""
+    import torch
+    from repro_torch.models import lm
+    ms = {}
+    for L in GRAPH_LENS:
+        P = L - 128
+        for b in range(batches):
+            caches = _drawn_caches(cfg, L, P, g)
+            ref = {"prologue": [lm._own(c) for c in caches["prologue"]],
+                   "groups": [[lm._own(c) for c in slot]
+                              for slot in caches["groups"]]}
+            toks = torch.randint(0, cfg.vocab, (GRAPH_BATCH, GRAPH_STEPS),
+                                 generator=g, device="cuda")
+            got, want = [], []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(GRAPH_STEPS):
+                logits, caches = lm.decode_step(p, cfg, toks[:, i], P + i,
+                                                caches)
+                got.append(logits)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for i in range(GRAPH_STEPS):
+                logits, ref = lm._step(p, cfg, toks[:, i], P + i, ref)
+                want.append(logits)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            ms[L] = {"graph": (t1 - t0) * 1e3 / GRAPH_STEPS,
+                     "eager": (t2 - t1) * 1e3 / GRAPH_STEPS}
+            off = [i for i in range(GRAPH_STEPS)
+                   if not torch.equal(got[i], want[i])]
+            if off:
+                i = off[0]
+                d = (got[i].float() - want[i].float()).abs().max()
+                raise AssertionError(f"L {L} batch {b}: graph logits differ "
+                                     f"from eager at steps {off}, first by "
+                                     f"{float(d):.3e}")
+            same = all(torch.equal(x, y) for c, d in zip(
+                lm._layer_caches(caches), lm._layer_caches(ref))
+                for x, y in zip(c, d))
+            if not same:
+                raise AssertionError(f"L {L} batch {b}: caches differ")
+            del caches, ref, got, want
+    return ms
+
+
+def phase_decode_graph() -> dict:
+    """DeepSeek-V2-Lite at full size, bf16 at rest, served as the LM cell
+    serves it (absorbed decode, no-drop capacity), GRAPH_BATCH requests:
+    two batches of each cache length of GRAPH_LENS through the kept decode
+    graphs, each step bit-equal to the eager step in logits and caches;
+    one capture a length, one copy-in a batch, one replay a step. Then the
+    weights dropped: their graphs go and the device gets back the weights'
+    and the kept caches' bytes. Then a second set of weights, one batch a
+    length, captured anew."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch import configs
+    from repro_torch.bench import lm_serve
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(lm_serve.serving_config(
+        configs.get_config(DEEPSEEK)), mla_absorb=True)
+    lm.clear_step_graphs()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device="cuda").manual_seed(22)
+    before = dict(lm.STEP_GRAPH_COUNTS)
+
+    def counts():
+        return {k: v - before[k] for k, v in lm.STEP_GRAPH_COUNTS.items()}
+
+    with torch.inference_mode():
+        p = lm_serve.build(cfg, 21, "cuda", torch.bfloat16)
+        ms = _graph_batches(p, cfg, 2, g)
+        first = counts()
+        want = {"captures": 2, "replays": 4 * GRAPH_STEPS, "copy_ins": 4,
+                "eager_steps": 0, "evictions": 0}
+        if first != want:
+            raise AssertionError(f"counts {first}, not {want}")
+        kept = sum(t.numel() * t.element_size()
+                   for e in lm._STEP_GRAPHS.values()
+                   for c in e.layers for t in c)
+        nbytes = kept + sum(t.numel() * t.element_size()
+                            for t in p.parameters())
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        del p
+        gc.collect()
+        freed = held - torch.cuda.memory_allocated()
+        if lm._STEP_GRAPHS or freed < nbytes:
+            raise AssertionError(f"{len(lm._STEP_GRAPHS)} graphs kept; "
+                                 f"{freed} B freed of {nbytes}")
+        before = dict(lm.STEP_GRAPH_COUNTS)
+        p = lm_serve.build(cfg, 23, "cuda", torch.bfloat16)
+        _graph_batches(p, cfg, 1, g)
+        second = counts()
+        del p
+        gc.collect()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"captures": 2, "replays": 2 * GRAPH_STEPS, "copy_ins": 2,
+            "eager_steps": 0, "evictions": 0}
+    if second != want:
+        raise AssertionError(f"second weights' counts {second}, not {want}")
+    torch.cuda.empty_cache()
+    log(f"[10b decode-graph] DeepSeek-V2-Lite bf16, absorbed decode, batch "
+        f"{GRAPH_BATCH}, {GRAPH_STEPS} steps a batch: graph replays "
+        f"bit-equal to the eager step in logits and caches at cache lengths "
+        f"{GRAPH_LENS}, two batches each, and on a second set of weights; "
+        f"counts {first} then {second}; ms a step (host clock, second "
+        f"batch) " + ", ".join(
+            f"L{L} graph {v['graph']:.2f} eager {v['eager']:.2f}"
+            for L, v in ms.items())
+        + f"; weights dropped: {freed / 2**30:.2f} GiB freed (weights and "
+        f"kept caches {nbytes / 2**30:.2f}); peak {peak / 2**30:.2f} GiB "
+        f"({time.perf_counter() - t0:.1f}s)")
+    return {"ms": ms, "counts": [first, second], "freed": freed,
+            "peak": peak}
 
 
 # ---------------------------------------------------------------------------
@@ -3557,6 +3708,7 @@ def main() -> int:
     phase_mamba_cross()
     ds_path = phase_deepseek()
     phase_deepseek_cross()
+    phase_decode_graph()
     cfg_path = phase_configs()
     train_path = phase_train(smi, built["ssd_faults"])
     shard_path = phase_shard(smi)

@@ -198,11 +198,13 @@ def run(device="cuda", seed: int = 0, seq: int = 4096, batch: int = 4,
             variants.append(("decode_absorbed",
                              dataclasses.replace(scfg, mla_absorb=True)))
         for name, dcfg in variants:
-            pos = [npre + seq]
+            at = [npre + seq, c]        # the position, the caches
 
             def step():
-                lm.decode_step(p, dcfg, tok, pos[0], c)
-                pos[0] += 1
+                # the caches a step returns are the next step's (a kept
+                # graph's own buffers where the step replays one)
+                _, at[1] = lm.decode_step(p, dcfg, tok, at[0], at[1])
+                at[0] += 1
 
             step()
             out[name] = _trace(step, decode_steps)

@@ -15,7 +15,8 @@ scoring:
 serving:
     init_caches(cfg, batch, max_len) -> caches
     prefill(p, cfg, tokens, caches) -> (last_logits, caches)
-    decode_step(p, cfg, token, pos, caches) -> (logits, caches)
+    decode_step(p, cfg, token, pos, caches) -> (logits, caches), on CUDA
+        a kept CUDA graph a shape where the step allows one
 
 Parameters live in an `LM` module whose parameter names are the
 reference's dict keys; the functions on tensors are plain functions, as
@@ -23,13 +24,15 @@ in the reference. `loss_fn` scores: the port has no gradient step.
 """
 from __future__ import annotations
 
+import collections
+import weakref
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.device import resolve
+from repro_torch.models import mla, transformer
 from repro_torch.models import modules as nn
-from repro_torch.models import transformer
 from repro_torch.parallel import sharding as shd
 
 IGNORE = -100
@@ -142,7 +145,10 @@ def forward(p, cfg, tokens, prefix_embeds=None, positions=None,
     """Full forward over tokens [B, S] ([B, K, S]). head_mode: "all" |
     "last" (only the final position's logits, as prefill) | "none" (the
     final hidden states). The prefix positions are dropped before the
-    head. Returns (logits_or_hidden, new_caches, aux_loss)."""
+    head. `cache_pos` is the cache offset of the first token: a host int,
+    or, on a stack of MLA blocks alone, an int64 tensor [1] read on the
+    device (a captured decode step's position), which writes the same
+    values. Returns (logits_or_hidden, new_caches, aux_loss)."""
     x = _embed(p, cfg, tokens)
     B = x.shape[0]
     n_pre = 0
@@ -153,10 +159,14 @@ def forward(p, cfg, tokens, prefix_embeds=None, positions=None,
         x = torch.cat([pe, x], dim=1)
         n_pre = prefix_embeds.shape[1]
     S = x.shape[1]
+    if cache_pos is not None and not (torch.is_tensor(cache_pos)
+                                      and cache_pos.ndim == 1):
+        cache_pos = int(cache_pos)      # a 0-d tensor is read on the host
     if positions is None:
-        base = 0 if cache_pos is None else int(cache_pos)
-        positions = base + torch.arange(
-            S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        base = 0 if cache_pos is None else cache_pos
+        positions = (base + torch.arange(S, dtype=torch.int32,
+                                         device=x.device)
+                     ).to(torch.int32)[None].expand(B, S)
     prefix_len = None
     if cfg.prefix_lm and n_pre:
         prefix_len = torch.full((B,), n_pre, dtype=torch.int32,
@@ -164,8 +174,7 @@ def forward(p, cfg, tokens, prefix_embeds=None, positions=None,
     x = shd.constrain(x, ("batch", "seq", None))
     x, new_caches, aux = transformer.stack_apply(
         p["stack"], cfg, x, positions, prefix_len=prefix_len, caches=caches,
-        cache_pos=None if cache_pos is None else int(cache_pos),
-        kv_valid=kv_valid)
+        cache_pos=cache_pos, kv_valid=kv_valid)
     # the head and the loss read whole sequences (sequence parallelism
     # split them over "model"; a no-op otherwise)
     x = shd.constrain(nn.rms_norm(x, p["final_norm"], cfg.norm_eps),
@@ -262,11 +271,192 @@ def prefill(p, cfg, tokens, caches, prefix_embeds=None, kv_valid=None):
 def decode_step(p, cfg, token, pos: int, caches, kv_valid=None,
                 positions=None):
     """One decode step. token [B] (or [B, K]); pos is the cache offset of
-    the token. Returns (logits [B, V] or [B, K, V], caches)."""
+    the token. Returns (logits [B, V] or [B, K, V], caches).
+
+    Where the step can be captured (`_eager_reason` finds nothing), it
+    runs as a CUDA graph kept for its shape (`_graph_step`), and the
+    caches returned are that graph's own buffers, holding the step's
+    writes; `caches` is left as it was. They stay valid until the next
+    call with other caches of the same shape, which copies those over
+    them: pass them back, as a decode loop does, and the step replays at
+    once. The logits are a fresh tensor each call. Elsewhere the step
+    runs eagerly and writes `caches` in place."""
+    layers = _layer_caches(caches)
+    if _eager_reason(p, token, layers, kv_valid, positions) is None:
+        return _graph_step(p, cfg, token, int(pos), caches, layers)
+    STEP_GRAPH_COUNTS["eager_steps"] += 1
+    return _step(p, cfg, token, pos, caches, kv_valid, positions)
+
+
+def _step(p, cfg, token, pos, caches, kv_valid=None, positions=None):
     logits, caches, _ = forward(p, cfg, token[..., None], caches=caches,
                                 cache_pos=pos, kv_valid=kv_valid,
                                 positions=positions)
     return _at(logits, 0), caches
+
+
+# ---------------------------------------------------------------------------
+# kept decode graphs
+# ---------------------------------------------------------------------------
+# A decode step launches thousands of small kernels, one after another
+# from the host. Recorded once in a CUDA graph, it replays in one launch.
+# A graph is kept for each shape of step (`_graph_key`) while its weights
+# live: it holds them by a weak reference, which drops it with them, so a
+# dead model's memory is never held, nor a graph of it replayed. At most
+# `STEP_GRAPH_CACHE_SIZE` a device, least recently used out first. A
+# device's captures share one memory pool for their transients, since
+# they replay one at a time. `STEP_GRAPH_COUNTS` counts, for the process,
+# what the calls did.
+STEP_GRAPH_CACHE_SIZE = 4
+STEP_GRAPH_COUNTS = {"captures": 0, "replays": 0, "copy_ins": 0,
+                     "eager_steps": 0, "evictions": 0}
+_STEP_GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
+_SIDE: Dict[torch.device, tuple] = {}    # a device's side stream and pool
+
+
+class _StepGraph:
+    """A kept decode step: its graph (None until captured), its static
+    inputs (the token, and the position as an int64 [1]), its own caches,
+    their layers in `stack_apply`'s order, and its output logits."""
+
+    __slots__ = ("weights", "graph", "token", "pos", "caches", "layers",
+                 "logits")
+
+
+def clear_step_graphs() -> None:
+    """Drop every kept decode step (the caches one returned stay with
+    whoever holds them)."""
+    _STEP_GRAPHS.clear()
+
+
+def _layer_caches(caches) -> list:
+    """Each layer's cache in the order `stack_apply` runs them; [] for
+    no caches."""
+    if not isinstance(caches, dict):
+        return []
+    return [*caches["prologue"], *(c for slot in caches["groups"]
+                                   for c in slot)]
+
+
+def _eager_reason(p, token, layers, kv_valid, positions) -> Optional[str]:
+    """Why a decode step must run eagerly, or None where a kept graph can
+    run it: a graph replays the same kernels on the same buffers, so
+    nothing in the step may be read on the host or vary but the token and
+    the position it copies in."""
+    if positions is not None:
+        return "positions"          # the caller's own, any shape
+    if kv_valid is not None:
+        return "kv_valid"
+    if torch.is_grad_enabled():
+        return "autograd"
+    if not isinstance(p, torch.nn.Module):
+        return "weights"            # a graph holds them weakly
+    if shd.active_mesh() is not None:
+        return "mesh"
+    # an MLA cache is written at the position alone; a window's ring
+    # buffer and the recurrent states are written at host positions or
+    # by the port's kernels
+    if not layers or not all(isinstance(c, mla.MLACache)
+                             and not shd.is_dtensor(c.c_kv)
+                             for c in layers):
+        return "layers"
+    dev = token.device
+    if any(t.device != dev for c in layers for t in c) \
+            or not _capturable(dev):
+        return "device"
+    return None
+
+
+def _capturable(dev: torch.device) -> bool:
+    """Whether a CUDA graph can record on `dev` now."""
+    return dev.type == "cuda" and not torch.cuda.is_current_stream_capturing()
+
+
+def _graph_key(p, cfg, token, layers) -> tuple:
+    """The shape of a step: device, weights, configuration, token shape,
+    each layer's cache shapes and dtypes, and inference mode (a buffer
+    made under it cannot be written outside it)."""
+    return (token.device, id(p), cfg, tuple(token.shape),
+            tuple((c.c_kv.shape, c.c_kv.dtype, c.k_rope.shape,
+                   c.k_rope.dtype) for c in layers),
+            torch.is_inference_mode_enabled())
+
+
+def _graph_step(p, cfg, token, pos: int, caches, layers):
+    """`decode_step` through the graph kept for its shape: made on the
+    shape's first call from a copy of `caches`, captured after one eager
+    step; later calls copy other caches in, then each fills the token and
+    the position and replays."""
+    key = _graph_key(p, cfg, token, layers)
+    e = _STEP_GRAPHS.get(key)
+    if e is None:
+        e = _new_entry(key, p, token, caches)
+    elif caches is not e.caches and not all(
+            a is b for c, d in zip(layers, e.layers) for a, b in zip(c, d)):
+        for c, d in zip(layers, e.layers):
+            for src, dst in zip(c, d):
+                dst.copy_(src)
+        STEP_GRAPH_COUNTS["copy_ins"] += 1
+    _STEP_GRAPHS.move_to_end(key)
+    e.token.copy_(token)
+    e.pos.fill_(pos)
+    if e.graph is None:
+        _capture(key, e, p, cfg)
+    e.graph.replay()
+    STEP_GRAPH_COUNTS["replays"] += 1
+    return e.logits.clone(), e.caches
+
+
+def _new_entry(key, p, token, caches) -> _StepGraph:
+    """A kept step for `key` whose buffers are copies of the call's, in
+    place of the least recently used one of its device if that has
+    `STEP_GRAPH_CACHE_SIZE`."""
+    e = _StepGraph()
+    e.weights = weakref.ref(p, lambda _, k=key: _STEP_GRAPHS.pop(k, None))
+    e.graph = e.logits = None
+    e.token = token.clone()
+    e.pos = torch.zeros(1, dtype=torch.int64, device=token.device)
+    e.caches = {"prologue": [_own(c) for c in caches["prologue"]],
+                "groups": [[_own(c) for c in slot]
+                           for slot in caches["groups"]]}
+    e.layers = _layer_caches(e.caches)
+    STEP_GRAPH_COUNTS["copy_ins"] += 1
+    same = [k for k in _STEP_GRAPHS if k[0] == key[0]]
+    for k in same[:max(0, len(same) + 1 - STEP_GRAPH_CACHE_SIZE)]:
+        del _STEP_GRAPHS[k]
+        STEP_GRAPH_COUNTS["evictions"] += 1
+    _STEP_GRAPHS[key] = e
+    return e
+
+
+def _own(cache: mla.MLACache) -> mla.MLACache:
+    return mla.MLACache(*(t.clone() for t in cache))
+
+
+def _capture(key, e: _StepGraph, p, cfg) -> None:
+    """Run the step once eagerly on a side stream (what initialises
+    itself on a first call does so outside the capture), then record it
+    there into `e.graph`, its transients in the device's pool. The eager
+    step writes the rows that the replay then writes again, with the same
+    values. A capture that fails drops the entry and raises."""
+    dev = e.token.device
+    if dev not in _SIDE:
+        _SIDE[dev] = (torch.cuda.Stream(dev), torch.cuda.graph_pool_handle())
+    (side, pool), here = _SIDE[dev], torch.cuda.current_stream(dev)
+    side.wait_stream(here)
+    g = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.stream(side):
+            _step(p, cfg, e.token, e.pos, e.caches)
+        with torch.cuda.graph(g, pool=pool, stream=side,
+                              capture_error_mode="thread_local"):
+            e.logits, _ = _step(p, cfg, e.token, e.pos, e.caches)
+    except BaseException:
+        _STEP_GRAPHS.pop(key, None)
+        raise
+    here.wait_stream(side)
+    e.graph = g
+    STEP_GRAPH_COUNTS["captures"] += 1
 
 
 # ---------------------------------------------------------------------------

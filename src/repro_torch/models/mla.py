@@ -157,9 +157,9 @@ def _mla_attend_absorbed(p, cfg, q_nope, q_rope, c_kv, k_rope, q_pos,
 def mla_apply(p, cfg, x, positions, cache: Optional[MLACache] = None,
               cache_pos: Optional[int] = None, kv_valid=None):
     """Without a cache: causal attention over x's own latents. With one:
-    writes (c_kv, k_rope) at `cache_pos` in place and attends over the
-    cache; `kv_valid` [B] bounds each row's valid length (default
-    cache_pos + S)."""
+    writes (c_kv, k_rope) at `cache_pos` (a host int, or an int64 tensor
+    [1] on the device) in place and attends over the cache; `kv_valid`
+    [B] bounds each row's valid length (default cache_pos + S)."""
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_latents(p, cfg, x, positions)
     if cache is None:
@@ -167,12 +167,21 @@ def mla_apply(p, cfg, x, positions, cache: Optional[MLACache] = None,
                            positions, positions), None
     B, S = x.shape[0], x.shape[1]
     S_max = cache.c_kv.shape[1]
-    rows = range(cache_pos, cache_pos + S)
-    shd.write_rows(cache.c_kv, 1, rows, c_kv)
-    shd.write_rows(cache.k_rope, 1, rows, k_rope)
+    if torch.is_tensor(cache_pos):
+        # a captured step's position, read on the device: the same rows
+        # and valid length as at the host int
+        rows = cache_pos + torch.arange(S, device=x.device)
+        for buf, val in zip(cache, (c_kv, k_rope)):
+            buf.index_copy_(1, rows, val.to(buf.dtype))
+        valid = (cache_pos + S).to(torch.int32).expand(B)
+    else:
+        rows = range(cache_pos, cache_pos + S)
+        shd.write_rows(cache.c_kv, 1, rows, c_kv)
+        shd.write_rows(cache.k_rope, 1, rows, k_rope)
+        valid = torch.full((B,), cache_pos + S, dtype=torch.int32,
+                           device=x.device)
     if kv_valid is None:
-        kv_valid = torch.full((B,), cache_pos + S, dtype=torch.int32,
-                              device=x.device)
+        kv_valid = valid
     kv_pos = torch.arange(S_max, dtype=torch.int32,
                           device=x.device)[None].expand(B, S_max)
     kv_pos = torch.where(kv_pos < kv_valid[:, None], kv_pos, -1)

@@ -81,10 +81,21 @@ def router_topk(logits, k: int) -> Tuple[torch.Tensor, torch.Tensor,
             dim=tuple(range(idx.ndim)))
     else:
         me = probs.reshape(-1, E).mean(0)                  # mean prob per e
-        counts = torch.bincount(idx.reshape(-1), minlength=E)
+        counts = expert_counts(idx, E)
     ce = counts.float() / idx.numel()
     aux = E * torch.sum(me * ce)
     return w, idx, aux
+
+
+def expert_counts(idx, n_experts: int) -> torch.Tensor:
+    """Choices per expert [E] (int64) of idx [..., k]: `torch.bincount`'s
+    integers by a scatter-add, which reads nothing back on the host
+    (`bincount` reads the input's maximum on a GPU), so that a captured
+    decode step can count."""
+    flat = idx.reshape(-1).to(torch.int64)
+    return torch.zeros(n_experts, dtype=torch.int64,
+                       device=idx.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
 
 
 def capacity(cfg, tokens: int) -> int:

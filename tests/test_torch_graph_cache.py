@@ -2,17 +2,12 @@
 
 A CUDA graph records the kernels of one block of super-steps over fixed
 buffers and replays them on whatever those buffers hold. Here it is
-stood in for by `_FakeGraph`: while `torch.cuda.graph` records, every
-ATen op is run and written down with its arguments, and each buffer that
-existed before and was written is put back afterwards (a capture runs
-nothing); `replay()` reruns the ops in order on the same tensors, writing
-each op's fresh outputs into the recorded ones, as a graph's kernels
-write into its pool. So `simulator._capture` runs as it is and
+stood in for by `graph_standin.FakeGraph`, which replays the ATen ops
+recorded while `torch.cuda.graph` ran. So `simulator._capture` runs as it is and
 `_simulate(..., graph=True)` keeps its graph on the CPU, and a later call
 of the same shapes copies its inputs into the kept buffers, resets the
 state and replays. Held to `_simulate_eager` field by field, bit for bit.
 """
-import contextlib
 import functools
 
 import numpy as np
@@ -20,81 +15,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch.utils import _pytree as pytree  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
-
+from graph_standin import RECORDING as _RECORDING  # noqa: E402
+from graph_standin import FakeGraph as _FakeGraph  # noqa: E402
+from graph_standin import fake_capture as _fake_capture  # noqa: E402
+from graph_standin import storage as _storage  # noqa: E402
 from repro_torch.core import campaign as camp, convert  # noqa: E402
 from repro_torch.core import faults, simulator as sim, workloads  # noqa: E402
 
 PARAMS = sim.make_params(device="cpu")
 SUITE = workloads.default_suite(n_instances=4)
 CELLS = [(0, 9), (4, 13), (5, 2), (1, 6)]
-
-
-def _storage(t: torch.Tensor) -> int:
-    return t.untyped_storage().data_ptr()
-
-
-def _leaves(x) -> list:
-    return [t for t in pytree.tree_leaves(x) if isinstance(t, torch.Tensor)]
-
-
-class _Recorder(TorchDispatchMode):
-    """Runs and writes down every op; keeps, before its first write, a
-    copy of each region an op writes into."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops, self.saved, self._seen = [], [], set()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        for i, a in enumerate(func._schema.arguments):
-            if a.alias_info is None or not a.alias_info.is_write:
-                continue
-            v = args[i] if i < len(args) else kwargs.get(a.name)
-            for t in _leaves(v):
-                k = (_storage(t), t.storage_offset(), tuple(t.shape),
-                     t.stride())
-                if k not in self._seen:
-                    self._seen.add(k)
-                    self.saved.append((t, t.clone()))
-        out = func(*args, **kwargs)
-        ins = {_storage(t) for t in _leaves((args, kwargs))}
-        flat = pytree.tree_leaves(out)
-        fresh = [(j, o) for j, o in enumerate(flat)
-                 if isinstance(o, torch.Tensor) and _storage(o) not in ins]
-        self.ops.append((func, args, kwargs, fresh))
-        return out
-
-
-class _FakeGraph:
-    """Stands in for `torch.cuda.CUDAGraph`: replays the recorded ops."""
-
-    ops = None
-
-    def replay(self):
-        for func, args, kwargs, fresh in self.ops:
-            flat = pytree.tree_leaves(func(*args, **kwargs))
-            for j, o in fresh:
-                o.copy_(flat[j])
-
-
-_RECORDING = []     # non-empty while a stand-in graph records
-
-
-@contextlib.contextmanager
-def _fake_capture(graph, stream=None, capture_error_mode=None):
-    rec = _Recorder()
-    _RECORDING.append(graph)
-    try:
-        with rec:
-            yield
-        graph.ops = rec.ops
-    finally:
-        _RECORDING.pop()
-        for t, saved in reversed(rec.saved):
-            t.copy_(saved)
 
 
 @pytest.fixture(autouse=True)
