@@ -2623,23 +2623,20 @@ def phase_deepseek() -> dict:
 # ---------------------------------------------------------------------------
 @contextlib.contextmanager
 def _expert_choices():
-    """Record the experts every MoE layer chooses, in call order. The
-    record reads each choice on the host, which a captured decode step
-    cannot do, so decode steps run eagerly while it records."""
-    from repro_torch.models import lm, moe
+    """Record the experts every MoE layer chooses, in call order."""
+    from repro_torch.models import moe
     chosen = []
-    real, capturable = moe.router_topk, lm._capturable
+    real = moe.router_topk
 
     def recorded(logits, k):
         out = real(logits, k)
         chosen.append(out[1].cpu())
         return out
     moe.router_topk = recorded
-    lm._capturable = lambda dev: False
     try:
         yield chosen
     finally:
-        moe.router_topk, lm._capturable = real, capturable
+        moe.router_topk = real
 
 
 def _deepseek_cut_run(p, cfg, toks, prompts, steps: int) -> dict:
@@ -2664,7 +2661,8 @@ def _deepseek_cut_run(p, cfg, toks, prompts, steps: int) -> dict:
                                                          mla_absorb=True))):
             tok, served = last.argmax(-1), []
             for i in range(steps):
-                logits, caches = lm.decode_step(p, c, tok, P + i, caches)
+                # the eager step: the record reads each choice on the host
+                logits, caches = lm._step(p, c, tok, P + i, caches)
                 served.append(logits.cpu())
                 tok = logits.argmax(-1)
             out[name] = torch.stack(served, 1)
@@ -2762,38 +2760,50 @@ def _drawn_caches(cfg, L: int, P: int, g):
 
 def _graph_batches(p, cfg, batches: int, g) -> dict:
     """`batches` batches of each length of GRAPH_LENS, GRAPH_STEPS steps
-    each, through `lm.decode_step` (the kept graph) and through the eager
-    step at the host int on a copy of the same caches: the logits and the
-    caches bit for bit. Returns each path's ms a step by length, host
-    clock to a synchronise, of the last batch."""
+    each, through `lm.decode_step` (a graph captured over the batch's
+    caches at its first step) and through the eager step at the host int
+    on a copy of the same caches: the logits and the caches bit for bit,
+    and the device memory the first step adds (the graph's pool, its
+    inputs, the logits) below the caches' bytes (it copies none).
+    Returns, by length, the last batch's ms a step of each path after the
+    first and its first step's ms (the capture), host clock to a
+    synchronise, and the bytes the graph added."""
     import torch
+    from torch.utils import _pytree as pytree
     from repro_torch.models import lm
     ms = {}
     for L in GRAPH_LENS:
         P = L - 128
         for b in range(batches):
             caches = _drawn_caches(cfg, L, P, g)
-            ref = {"prologue": [lm._own(c) for c in caches["prologue"]],
-                   "groups": [[lm._own(c) for c in slot]
-                              for slot in caches["groups"]]}
+            ref = pytree.tree_map(torch.clone, caches)
+            nbytes = sum(t.numel() * t.element_size()
+                         for c in lm._layer_caches(caches) for t in c)
             toks = torch.randint(0, cfg.vocab, (GRAPH_BATCH, GRAPH_STEPS),
                                  generator=g, device="cuda")
             got, want = [], []
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            held = torch.cuda.memory_allocated()
+            t = [time.perf_counter()]
             for i in range(GRAPH_STEPS):
                 logits, caches = lm.decode_step(p, cfg, toks[:, i], P + i,
                                                 caches)
                 got.append(logits)
+                if i == 0:
+                    torch.cuda.synchronize()
+                    t.append(time.perf_counter())
+                    added = torch.cuda.memory_allocated() - held
             torch.cuda.synchronize()
-            t1 = time.perf_counter()
+            t.append(time.perf_counter())
             for i in range(GRAPH_STEPS):
                 logits, ref = lm._step(p, cfg, toks[:, i], P + i, ref)
                 want.append(logits)
             torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            ms[L] = {"graph": (t1 - t0) * 1e3 / GRAPH_STEPS,
-                     "eager": (t2 - t1) * 1e3 / GRAPH_STEPS}
+            t.append(time.perf_counter())
+            ms[L] = {"first": (t[1] - t[0]) * 1e3,
+                     "graph": (t[2] - t[1]) * 1e3 / (GRAPH_STEPS - 1),
+                     "eager": (t[3] - t[2]) * 1e3 / GRAPH_STEPS,
+                     "added": added}
             off = [i for i in range(GRAPH_STEPS)
                    if not torch.equal(got[i], want[i])]
             if off:
@@ -2807,19 +2817,23 @@ def _graph_batches(p, cfg, batches: int, g) -> dict:
                 for x, y in zip(c, d))
             if not same:
                 raise AssertionError(f"L {L} batch {b}: caches differ")
+            if added >= nbytes:
+                raise AssertionError(f"L {L} batch {b}: the graph added "
+                                     f"{added} B beside caches of {nbytes}")
             del caches, ref, got, want
+            if lm._STEP_GRAPHS:
+                raise AssertionError("a graph outlived its caches")
     return ms
 
 
 def phase_decode_graph() -> dict:
     """DeepSeek-V2-Lite at full size, bf16 at rest, served as the LM cell
     serves it (absorbed decode, no-drop capacity), GRAPH_BATCH requests:
-    two batches of each cache length of GRAPH_LENS through the kept decode
+    two batches of each cache length of GRAPH_LENS through the decode
     graphs, each step bit-equal to the eager step in logits and caches;
-    one capture a length, one copy-in a batch, one replay a step. Then the
-    weights dropped: their graphs go and the device gets back the weights'
-    and the kept caches' bytes. Then a second set of weights, one batch a
-    length, captured anew."""
+    one capture a batch, one replay a step, no graph left once a batch's
+    caches go. Then the weights dropped: the device gets back their
+    bytes. Then a second set of weights, one batch a length."""
     import dataclasses
     import gc
     import torch
@@ -2842,15 +2856,10 @@ def phase_decode_graph() -> dict:
         p = lm_serve.build(cfg, 21, "cuda", torch.bfloat16)
         ms = _graph_batches(p, cfg, 2, g)
         first = counts()
-        want = {"captures": 2, "replays": 4 * GRAPH_STEPS, "copy_ins": 4,
-                "eager_steps": 0, "evictions": 0}
+        want = {"captures": 4, "replays": 4 * GRAPH_STEPS, "eager_steps": 0}
         if first != want:
             raise AssertionError(f"counts {first}, not {want}")
-        kept = sum(t.numel() * t.element_size()
-                   for e in lm._STEP_GRAPHS.values()
-                   for c in e.layers for t in c)
-        nbytes = kept + sum(t.numel() * t.element_size()
-                            for t in p.parameters())
+        nbytes = sum(t.numel() * t.element_size() for t in p.parameters())
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         del p
@@ -2866,8 +2875,7 @@ def phase_decode_graph() -> dict:
         del p
         gc.collect()
     peak = torch.cuda.max_memory_allocated()
-    want = {"captures": 2, "replays": 2 * GRAPH_STEPS, "copy_ins": 2,
-            "eager_steps": 0, "evictions": 0}
+    want = {"captures": 2, "replays": 2 * GRAPH_STEPS, "eager_steps": 0}
     if second != want:
         raise AssertionError(f"second weights' counts {second}, not {want}")
     torch.cuda.empty_cache()
@@ -2875,12 +2883,13 @@ def phase_decode_graph() -> dict:
         f"{GRAPH_BATCH}, {GRAPH_STEPS} steps a batch: graph replays "
         f"bit-equal to the eager step in logits and caches at cache lengths "
         f"{GRAPH_LENS}, two batches each, and on a second set of weights; "
-        f"counts {first} then {second}; ms a step (host clock, second "
-        f"batch) " + ", ".join(
-            f"L{L} graph {v['graph']:.2f} eager {v['eager']:.2f}"
-            for L, v in ms.items())
-        + f"; weights dropped: {freed / 2**30:.2f} GiB freed (weights and "
-        f"kept caches {nbytes / 2**30:.2f}); peak {peak / 2**30:.2f} GiB "
+        f"counts {first} then {second}; host clock, second batch: " +
+        ", ".join(f"L{L} first step (capture) {v['first']:.1f} ms, then "
+                  f"graph {v['graph']:.2f} ms a step, eager "
+                  f"{v['eager']:.2f}, the graph's memory beside the caches "
+                  f"{v['added'] / 2**20:.0f} MiB" for L, v in ms.items())
+        + f"; weights dropped: {freed / 2**30:.2f} GiB freed (weights "
+        f"{nbytes / 2**30:.2f}); peak {peak / 2**30:.2f} GiB "
         f"({time.perf_counter() - t0:.1f}s)")
     return {"ms": ms, "counts": [first, second], "freed": freed,
             "peak": peak}

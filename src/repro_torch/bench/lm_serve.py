@@ -135,19 +135,27 @@ def serve_check(p, cfg, prompts, served, prefix_embeds=None) -> dict:
 def _decode(p, cfg, last, caches, start: int, steps: int, dev) -> dict:
     """`steps` greedy decode steps from the prefill's last logits, the
     first token at cache offset `start`. Returns the served logits
-    [B, (K,) steps + 1, V], the time and the launches."""
+    [B, (K,) steps + 1, V], the launches, and the time: the first step
+    apart (`decode_first_ms`: what a set of caches' first step does once,
+    such as capturing the step's CUDA graph in `lm.decode_step`), the
+    others a step."""
     served = [last]
     n0 = launches()
-    t0 = time.perf_counter()
+    t = [time.perf_counter()]
     for i in range(steps):
         logits, caches = lm.decode_step(p, cfg, served[-1].argmax(-1),
                                         start + i, caches)
         served.append(logits)
+        if i == 0:
+            _sync(dev)
+            t.append(time.perf_counter())
     _sync(dev)
-    dt = time.perf_counter() - t0
+    t.append(time.perf_counter())
+    dt = t[-1] - t[min(1, steps)]
     return {"served": torch.stack(served, dim=-2),
-            "decode_ms_per_step": dt * 1e3 / max(steps, 1),
-            "decode_tok_per_s": last.shape[0] * steps / max(dt, 1e-9),
+            "decode_first_ms": (t[min(1, steps)] - t[0]) * 1e3,
+            "decode_ms_per_step": dt * 1e3 / max(steps - 1, 1),
+            "decode_tok_per_s": last.shape[0] * (steps - 1) / max(dt, 1e-9),
             "decode_launches": _diff(launches(), n0)}
 
 

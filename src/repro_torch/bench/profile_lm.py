@@ -198,13 +198,11 @@ def run(device="cuda", seed: int = 0, seq: int = 4096, batch: int = 4,
             variants.append(("decode_absorbed",
                              dataclasses.replace(scfg, mla_absorb=True)))
         for name, dcfg in variants:
-            at = [npre + seq, c]        # the position, the caches
+            pos = [npre + seq]
 
             def step():
-                # the caches a step returns are the next step's (a kept
-                # graph's own buffers where the step replays one)
-                _, at[1] = lm.decode_step(p, dcfg, tok, at[0], at[1])
-                at[0] += 1
+                lm.decode_step(p, dcfg, tok, pos[0], c)
+                pos[0] += 1
 
             step()
             out[name] = _trace(step, decode_steps)

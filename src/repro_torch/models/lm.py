@@ -16,7 +16,8 @@ serving:
     init_caches(cfg, batch, max_len) -> caches
     prefill(p, cfg, tokens, caches) -> (last_logits, caches)
     decode_step(p, cfg, token, pos, caches) -> (logits, caches), on CUDA
-        a kept CUDA graph a shape where the step allows one
+        a CUDA graph kept for the weights and caches where the step
+        allows one
 
 Parameters live in an `LM` module whose parameter names are the
 reference's dict keys; the functions on tensors are plain functions, as
@@ -24,7 +25,7 @@ in the reference. `loss_fn` scores: the port has no gradient step.
 """
 from __future__ import annotations
 
-import collections
+import itertools
 import weakref
 from typing import Any, Dict, Optional, Tuple
 
@@ -274,13 +275,10 @@ def decode_step(p, cfg, token, pos: int, caches, kv_valid=None,
     the token. Returns (logits [B, V] or [B, K, V], caches).
 
     Where the step can be captured (`_eager_reason` finds nothing), it
-    runs as a CUDA graph kept for its shape (`_graph_step`), and the
-    caches returned are that graph's own buffers, holding the step's
-    writes; `caches` is left as it was. They stay valid until the next
-    call with other caches of the same shape, which copies those over
-    them: pass them back, as a decode loop does, and the step replays at
-    once. The logits are a fresh tensor each call. Elsewhere the step
-    runs eagerly and writes `caches` in place."""
+    runs as a CUDA graph recorded over `caches` at their first step and
+    replayed at each later step on them (`_graph_step`), kept while the
+    weights and the caches live. Either way the step writes `caches` in
+    place and returns them, and the logits are a fresh tensor."""
     layers = _layer_caches(caches)
     if _eager_reason(p, token, layers, kv_valid, positions) is None:
         return _graph_step(p, cfg, token, int(pos), caches, layers)
@@ -299,33 +297,33 @@ def _step(p, cfg, token, pos, caches, kv_valid=None, positions=None):
 # kept decode graphs
 # ---------------------------------------------------------------------------
 # A decode step launches thousands of small kernels, one after another
-# from the host. Recorded once in a CUDA graph, it replays in one launch.
-# A graph is kept for each shape of step (`_graph_key`) while its weights
-# live: it holds them by a weak reference, which drops it with them, so a
-# dead model's memory is never held, nor a graph of it replayed. At most
-# `STEP_GRAPH_CACHE_SIZE` a device, least recently used out first. A
-# device's captures share one memory pool for their transients, since
-# they replay one at a time. `STEP_GRAPH_COUNTS` counts, for the process,
-# what the calls did.
-STEP_GRAPH_CACHE_SIZE = 4
-STEP_GRAPH_COUNTS = {"captures": 0, "replays": 0, "copy_ins": 0,
-                     "eager_steps": 0, "evictions": 0}
-_STEP_GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
+# from the host. Recorded once in a CUDA graph over the caller's caches,
+# it replays in one launch at every later step on them. A graph is kept
+# while its weights and its caches live: it holds them by weak
+# references, which drop it with either, so it holds no memory of a dead
+# model or of a finished batch (nor a copy of any cache), and never
+# replays over freed buffers. New caches, such as the next batch's, are
+# captured anew. A device's captures share one memory pool for their
+# transients, since they replay one at a time. `STEP_GRAPH_COUNTS`
+# counts, for the process, what the calls did.
+STEP_GRAPH_COUNTS = {"captures": 0, "replays": 0, "eager_steps": 0}
+_STEP_GRAPHS: Dict[tuple, "_StepGraph"] = {}
 _SIDE: Dict[torch.device, tuple] = {}    # a device's side stream and pool
+_WARM: set = set()          # the step shapes run once before a capture
+_SERIAL = itertools.count()
 
 
 class _StepGraph:
-    """A kept decode step: its graph (None until captured), its static
-    inputs (the token, and the position as an int64 [1]), its own caches,
-    their layers in `stack_apply`'s order, and its output logits."""
+    """A kept decode step: its graph (None until captured, and for
+    caches whose capture found no room: those step eagerly), its static
+    inputs (the token, and the position as an int64 [1]), its output
+    logits, and the weak references that drop it."""
 
-    __slots__ = ("weights", "graph", "token", "pos", "caches", "layers",
-                 "logits")
+    __slots__ = ("graph", "eager", "token", "pos", "logits", "refs")
 
 
 def clear_step_graphs() -> None:
-    """Drop every kept decode step (the caches one returned stay with
-    whoever holds them)."""
+    """Drop every kept decode step."""
     _STEP_GRAPHS.clear()
 
 
@@ -372,91 +370,93 @@ def _capturable(dev: torch.device) -> bool:
     return dev.type == "cuda" and not torch.cuda.is_current_stream_capturing()
 
 
-def _graph_key(p, cfg, token, layers) -> tuple:
-    """The shape of a step: device, weights, configuration, token shape,
-    each layer's cache shapes and dtypes, and inference mode (a buffer
-    made under it cannot be written outside it)."""
-    return (token.device, id(p), cfg, tuple(token.shape),
+def _shape(cfg, token, layers) -> tuple:
+    """The shape of a step: device, configuration, token shape, each
+    layer's cache shapes and dtypes, and inference mode (a buffer made
+    under it cannot be written outside it)."""
+    return (token.device, cfg, tuple(token.shape),
             tuple((c.c_kv.shape, c.c_kv.dtype, c.k_rope.shape,
                    c.k_rope.dtype) for c in layers),
             torch.is_inference_mode_enabled())
 
 
 def _graph_step(p, cfg, token, pos: int, caches, layers):
-    """`decode_step` through the graph kept for its shape: made on the
-    shape's first call from a copy of `caches`, captured after one eager
-    step; later calls copy other caches in, then each fills the token and
-    the position and replays."""
-    key = _graph_key(p, cfg, token, layers)
+    """`decode_step` through the graph kept for these weights and these
+    caches (captured on their first call): fills the token and the
+    position and replays, writing the caches in place."""
+    key = (id(p), *(id(t) for c in layers for t in c),
+           *_shape(cfg, token, layers))
     e = _STEP_GRAPHS.get(key)
     if e is None:
-        e = _new_entry(key, p, token, caches)
-    elif caches is not e.caches and not all(
-            a is b for c, d in zip(layers, e.layers) for a, b in zip(c, d)):
-        for c, d in zip(layers, e.layers):
-            for src, dst in zip(c, d):
-                dst.copy_(src)
-        STEP_GRAPH_COUNTS["copy_ins"] += 1
-    _STEP_GRAPHS.move_to_end(key)
+        e = _new_entry(key, p, token, layers)
+    if e.eager:
+        STEP_GRAPH_COUNTS["eager_steps"] += 1
+        return _step(p, cfg, token, pos, caches)
     e.token.copy_(token)
     e.pos.fill_(pos)
-    if e.graph is None:
-        _capture(key, e, p, cfg)
+    if e.graph is None and not _capture(key, e, p, cfg, caches, layers):
+        STEP_GRAPH_COUNTS["eager_steps"] += 1
+        return _step(p, cfg, token, pos, caches)
     e.graph.replay()
     STEP_GRAPH_COUNTS["replays"] += 1
-    return e.logits.clone(), e.caches
+    return e.logits.clone(), caches
 
 
-def _new_entry(key, p, token, caches) -> _StepGraph:
-    """A kept step for `key` whose buffers are copies of the call's, in
-    place of the least recently used one of its device if that has
-    `STEP_GRAPH_CACHE_SIZE`."""
+def _new_entry(key, p, token, layers) -> _StepGraph:
+    """An entry for `key`, dropped when its weights or any of its cache
+    buffers go (the ids in `key` are then free for other objects)."""
     e = _StepGraph()
-    e.weights = weakref.ref(p, lambda _, k=key: _STEP_GRAPHS.pop(k, None))
     e.graph = e.logits = None
+    e.eager = False
     e.token = token.clone()
     e.pos = torch.zeros(1, dtype=torch.int64, device=token.device)
-    e.caches = {"prologue": [_own(c) for c in caches["prologue"]],
-                "groups": [[_own(c) for c in slot]
-                           for slot in caches["groups"]]}
-    e.layers = _layer_caches(e.caches)
-    STEP_GRAPH_COUNTS["copy_ins"] += 1
-    same = [k for k in _STEP_GRAPHS if k[0] == key[0]]
-    for k in same[:max(0, len(same) + 1 - STEP_GRAPH_CACHE_SIZE)]:
-        del _STEP_GRAPHS[k]
-        STEP_GRAPH_COUNTS["evictions"] += 1
+    n = next(_SERIAL)
+
+    def drop(_, k=key, n=n):
+        kept = _STEP_GRAPHS.get(k)
+        if kept is not None and kept.refs[0] == n:
+            del _STEP_GRAPHS[k]
+
+    e.refs = [n, weakref.ref(p, drop),
+              *(weakref.ref(t, drop) for c in layers for t in c)]
     _STEP_GRAPHS[key] = e
     return e
 
 
-def _own(cache: mla.MLACache) -> mla.MLACache:
-    return mla.MLACache(*(t.clone() for t in cache))
-
-
-def _capture(key, e: _StepGraph, p, cfg) -> None:
-    """Run the step once eagerly on a side stream (what initialises
-    itself on a first call does so outside the capture), then record it
-    there into `e.graph`, its transients in the device's pool. The eager
-    step writes the rows that the replay then writes again, with the same
-    values. A capture that fails drops the entry and raises."""
+def _capture(key, e: _StepGraph, p, cfg, caches, layers) -> bool:
+    """Record the step over `caches` into `e.graph` on a side stream, its
+    transients in the device's pool; a shape's first capture runs the step
+    once eagerly before (what initialises itself on a first call does so
+    outside the capture; it writes the row that the replay then writes
+    again, with the same values). Where the pool finds no room for the
+    transients, the entry is marked to step eagerly and False returned.
+    Any other failure drops the entry and raises."""
     dev = e.token.device
     if dev not in _SIDE:
         _SIDE[dev] = (torch.cuda.Stream(dev), torch.cuda.graph_pool_handle())
     (side, pool), here = _SIDE[dev], torch.cuda.current_stream(dev)
+    shape = _shape(cfg, e.token, layers)
     side.wait_stream(here)
     g = torch.cuda.CUDAGraph()
     try:
         with torch.cuda.stream(side):
-            _step(p, cfg, e.token, e.pos, e.caches)
+            if shape not in _WARM:
+                _step(p, cfg, e.token, e.pos, caches)
+                _WARM.add(shape)
         with torch.cuda.graph(g, pool=pool, stream=side,
                               capture_error_mode="thread_local"):
-            e.logits, _ = _step(p, cfg, e.token, e.pos, e.caches)
+            e.logits, _ = _step(p, cfg, e.token, e.pos, caches)
+    except torch.cuda.OutOfMemoryError:
+        here.wait_stream(side)
+        e.eager, e.logits = True, None
+        return False
     except BaseException:
         _STEP_GRAPHS.pop(key, None)
         raise
     here.wait_stream(side)
     e.graph = g
     STEP_GRAPH_COUNTS["captures"] += 1
+    return True
 
 
 # ---------------------------------------------------------------------------

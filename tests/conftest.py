@@ -1,7 +1,5 @@
 import warnings
 
-import pytest
-
 warnings.filterwarnings("ignore", category=DeprecationWarning)
 
 # NOTE: do NOT set XLA_FLAGS/device-count here — smoke tests and benches
@@ -11,12 +9,3 @@ warnings.filterwarnings("ignore", category=DeprecationWarning)
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "card: needs an NVIDIA GPU (runs on the chip only)")
-
-
-@pytest.fixture
-def card():
-    """Skip where there is no GPU; decided when the test runs, never
-    while the module is imported."""
-    import torch
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")

@@ -12,10 +12,13 @@ layer and two MoE layers, MLA), with two cases on the card.
 - **The rule.** Only a step that can be captured takes the graph: the
   others run eagerly and the counter says so.
 - **The kept graphs.** With `graph_standin.FakeGraph` in place of a CUDA
-  graph the whole path runs here: entries a shape, copy-ins, replays,
-  eviction, weights dropped. Held to the eager step bit for bit.
+  graph (holding, as a graph does, no tensor made before the capture)
+  the whole path runs here: a capture for each set of caches, replays,
+  the entries going with their caches or their weights, a capture with
+  no room. Held to the eager step bit for bit.
 """
 import contextlib
+import functools
 import gc
 import weakref
 
@@ -206,8 +209,8 @@ def test_a_step_that_cannot_be_captured_runs_eagerly(case, monkeypatch):
         want, _ = lm._step(p, cfg, toks[:, P], P, _copy(caches), **kw)
         before = dict(lm.STEP_GRAPH_COUNTS)
         got, _ = lm.decode_step(p, cfg, toks[:, P], P, caches, **kw)
-    assert _counts(before) == {"captures": 0, "replays": 0, "copy_ins": 0,
-                               "eager_steps": 1, "evictions": 0}
+    assert _counts(before) == {"captures": 0, "replays": 0,
+                               "eager_steps": 1}
     assert not lm._STEP_GRAPHS
     assert torch.equal(got, want)
 
@@ -228,7 +231,8 @@ def standin(monkeypatch):
     """`FakeGraph` for CUDA graphs, streams that do nothing, and the CPU
     taken as capturable."""
     monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph", fake_capture)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        functools.partial(fake_capture, weak=True))
     monkeypatch.setattr(torch.cuda, "Stream", _Stream)
     monkeypatch.setattr(torch.cuda, "current_stream", _Stream)
     monkeypatch.setattr(torch.cuda, "stream",
@@ -242,10 +246,10 @@ def _replays_as_eager(cfg, device):
     """Two cache lengths, two batches each, STEPS steps a batch, then a
     second set of weights, one batch a length: every step's logits and
     caches bit-equal to the eager step at the host int, the caller's
-    caches left as they were, each step's logits its own. Returns the
-    counts."""
+    caches written in place and returned, each step's logits its own, one
+    graph kept while a batch's caches live and none once they are gone.
+    Returns the counts."""
     before = dict(lm.STEP_GRAPH_COUNTS)
-    seen = []
     with torch.inference_mode():
         for w, batches in ((0, 2), (1, 1)):
             p = _model(cfg, w, device)
@@ -253,58 +257,74 @@ def _replays_as_eager(cfg, device):
                 for b in range(batches):
                     toks, caches = _prefilled(p, cfg, 3, P, P + STEPS,
                                               10 * w + P + b, device)
-                    ref, given = _copy(caches), _copy(caches)
+                    ref = _copy(caches)
                     prev = None
                     for i in range(STEPS):
-                        arg = caches
-                        got, caches = lm.decode_step(p, cfg, toks[:, P + i],
-                                                     P + i, caches)
+                        got, out = lm.decode_step(p, cfg, toks[:, P + i],
+                                                  P + i, caches)
                         want, ref = lm._step(p, cfg, toks[:, P + i], P + i,
                                              ref)
                         assert torch.equal(got, want), (w, P, b, i)
-                        assert _same(caches, ref), (w, P, b, i)
-                        if i == 0:
-                            assert _same(arg, given)
+                        assert out is caches and _same(caches, ref), (
+                            w, P, b, i)
                         if prev is not None:
                             assert torch.equal(prev[0], prev[1])
                         prev = (got, got.clone())
-            seen.append(len(lm._STEP_GRAPHS))
-    # the first weights' two graphs went with them
-    assert seen == [2, 2]
+                    assert len(lm._STEP_GRAPHS) == 1
+                    del caches, out
+                    assert not lm._STEP_GRAPHS
+            del p
     return _counts(before)
 
 
 @pytest.mark.parametrize("absorb", [False, True],
                          ids=["expanded", "absorbed"])
 def test_kept_graphs_replay_as_the_eager_step(absorb, standin):
-    """One capture a pair of weights and cache length, one copy-in a
-    batch, one replay a step."""
+    """One capture a batch, one replay a step."""
     counts = _replays_as_eager(_cfg("bfloat16", absorb), "cpu")
-    assert counts == {"captures": 4, "copy_ins": 6, "replays": 6 * STEPS,
-                      "eager_steps": 0, "evictions": 0}
+    assert counts == {"captures": 6, "replays": 6 * STEPS, "eager_steps": 0}
 
 
-def test_the_least_recently_used_graph_goes_first(standin):
-    """`STEP_GRAPH_CACHE_SIZE` a device: a fifth cache length evicts the
-    oldest; that length captures again when it comes back."""
+def test_live_caches_keep_a_graph_each(standin):
+    """Three batches stepped in turn, two of one length: one capture each,
+    then replays alone, each over its own caches."""
     cfg = _cfg("float32")
     p = _model(cfg, 0)
-    size = lm.STEP_GRAPH_CACHE_SIZE
     before = dict(lm.STEP_GRAPH_COUNTS)
     with torch.inference_mode():
-        for n in list(range(size + 1)) + [0]:
-            toks, caches = _prefilled(p, cfg, 2, 3, 6 + n, n)
-            lm.decode_step(p, cfg, toks[:, 3], 3, caches)
-    lens = [k[4][0][0][1] for k in lm._STEP_GRAPHS]
-    assert lens == [6 + n for n in (2, 3, 4, 0)]
-    assert _counts(before) == {"captures": size + 2, "copy_ins": size + 2,
-                               "replays": size + 2, "eager_steps": 0,
-                               "evictions": 2}
+        batches = [_prefilled(p, cfg, 2, 3, L, n)
+                   for n, L in enumerate((8, 8, 10))]
+        refs = [_copy(c) for _, c in batches]
+        for i in range(3):
+            for (toks, caches), j in zip(batches, range(3)):
+                got, _ = lm.decode_step(p, cfg, toks[:, 3 + i], 3 + i, caches)
+                want, refs[j] = lm._step(p, cfg, toks[:, 3 + i], 3 + i,
+                                         refs[j])
+                assert torch.equal(got, want) and _same(caches, refs[j])
+    assert len(lm._STEP_GRAPHS) == 3
+    assert _counts(before) == {"captures": 3, "replays": 9, "eager_steps": 0}
+
+
+def test_dropped_caches_take_their_graph_with_them(standin):
+    """A graph holds the caches weakly and copies none: with the caller's
+    caches gone, the entry and its graph go and the caches' memory is
+    freed."""
+    cfg = _cfg("float32")
+    p = _model(cfg, 0)
+    with torch.inference_mode():
+        toks, caches = _prefilled(p, cfg, 2, 3, 8, 0)
+        lm.decode_step(p, cfg, toks[:, 3], 3, caches)
+        lm.decode_step(p, cfg, toks[:, 4], 4, caches)
+    e, = lm._STEP_GRAPHS.values()
+    graph, buf = weakref.ref(e.graph), weakref.ref(caches["prologue"][0][0])
+    del e
+    del caches
+    assert not lm._STEP_GRAPHS and graph() is None and buf() is None
 
 
 def test_dropped_weights_take_their_graphs_with_them(standin):
-    """A graph holds its weights weakly: with them gone, the entry, its
-    graph and, once the caller lets go, its caches are freed."""
+    """A graph holds its weights weakly: with them gone, the entry and its
+    graph are freed; the caches stay the caller's."""
     cfg = _cfg("float32")
     p = _model(cfg, 0)
     with torch.inference_mode():
@@ -320,6 +340,37 @@ def test_dropped_weights_take_their_graphs_with_them(standin):
     assert buf() is not None
     del caches
     assert buf() is None
+
+
+def test_a_capture_without_room_steps_eagerly(standin, monkeypatch):
+    """Where the graph's pool has no room for the step's transients, the
+    capture gives up and these caches step eagerly from then on, without
+    trying again; other caches capture."""
+    cfg = _cfg("float32")
+    p = _model(cfg, 0)
+    real = lm._step
+    full = [True]
+
+    def step(*a, **kw):
+        if RECORDING and full[0]:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(lm, "_step", step)
+    before = dict(lm.STEP_GRAPH_COUNTS)
+    with torch.inference_mode():
+        toks, caches = _prefilled(p, cfg, 2, 3, 8, 0)
+        ref = _copy(caches)
+        for i in range(3):
+            got, out = lm.decode_step(p, cfg, toks[:, 3 + i], 3 + i, caches)
+            want, ref = real(p, cfg, toks[:, 3 + i], 3 + i, ref)
+            assert torch.equal(got, want) and _same(out, ref)
+            full[0] = False
+        assert _counts(before) == {"captures": 0, "replays": 0,
+                                   "eager_steps": 3}
+        _, other = _prefilled(p, cfg, 2, 3, 8, 1)
+        lm.decode_step(p, cfg, toks[:, 3], 3, other)
+    assert _counts(before) == {"captures": 1, "replays": 1, "eager_steps": 3}
 
 
 def test_a_failed_capture_keeps_nothing(standin, monkeypatch):
@@ -351,14 +402,21 @@ def test_a_failed_capture_keeps_nothing(standin, monkeypatch):
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
+@pytest.fixture
+def card():
+    """Skip where there is no GPU; decided when the test runs, never
+    while the module is imported."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+
+
 @pytest.mark.card
 @pytest.mark.parametrize("absorb", [False, True],
                          ids=["expanded", "absorbed"])
 def test_kept_graphs_replay_as_the_eager_step_on_the_card(absorb, card):
     """CUDA graphs replay the eager step's kernels bit for bit."""
     counts = _replays_as_eager(_cfg("bfloat16", absorb), "cuda")
-    assert counts == {"captures": 4, "copy_ins": 6, "replays": 6 * STEPS,
-                      "eager_steps": 0, "evictions": 0}
+    assert counts == {"captures": 6, "replays": 6 * STEPS, "eager_steps": 0}
 
 
 @pytest.mark.card
