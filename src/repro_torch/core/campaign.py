@@ -1,14 +1,15 @@
-"""Crash-safe sweep campaigns over `simulator.run_batch`.
+"""Crash-safe sweep campaigns over the simulator's sweep entry.
 
 The port of `repro/core/campaign.py`. A sweep over a (mix x rate) grid
 is a long run, and one host-side failure (an out-of-memory chunk, a
 chunk that never ends, a killed process) would otherwise throw away
-every chunk already done. This layer wraps the sweep engine with:
+every chunk already done. This layer runs `run_batch`'s steps itself:
+the inputs checked once a sweep (`simulator.prepare_sweep`), the
+scenario axis cut into `run_batch`'s fixed-shape chunks
+(`simulator.chunk_layout`), each chunk's lanes indexed once and split
+over the devices (`simulator.run_chunk`), so per-scenario results are
+those of one uninterrupted sweep, bit for bit. Around them it adds:
 
-  * **chunking** — the scenario axis is cut into the engine's own
-    fixed-shape chunks (the same rounding to the device count and the
-    same padding as `run_batch`), so per-scenario results are those of
-    one uninterrupted sweep, bit for bit;
   * **checkpointing** — each completed chunk is written atomically (a
     temporary file, `fsync`, `os.replace`) into a campaign directory
     keyed by a content hash of the scenario spec (workloads, params,
@@ -74,7 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import faults as flt, simulator as sim
-from repro_torch.core.workloads import FlatWorkload, stack_workloads
+from repro_torch.core.workloads import FlatWorkload
 
 MANIFEST_NAME = "manifest.json"
 FORMAT_VERSION = 2    # v2: length-aware packing (chunks in packed order)
@@ -131,7 +132,7 @@ class Span(NamedTuple):
     `campaign.chunk` attempt: `ok`, `oom`, `timeout` or `stall`.
 
       campaign.run                 the whole call
-        campaign.prepare           inputs stacked and checked, packing,
+        campaign.prepare           inputs prepared, layout, packing,
                                    spec hash, up to the chunk loop
         campaign.chunk             one attempt at a chunk
           engine.*                 each engine call's phases
@@ -213,18 +214,11 @@ class CampaignResult(NamedTuple):
 # ---------------------------------------------------------------------------
 # spec hashing + atomic files
 # ---------------------------------------------------------------------------
-def _host(x) -> np.ndarray:
-    """`x` (a tensor on any device, or array-like) as host numpy."""
-    if torch.is_tensor(x):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
-
-
 def _hash_update(h, tag: str, value) -> None:
     if value is None:
         h.update(f"{tag}:none".encode())
         return
-    arr = np.ascontiguousarray(_host(value))
+    arr = np.ascontiguousarray(sim._host(value))
     h.update(f"{tag}:{arr.dtype.str}:{arr.shape}".encode())
     h.update(arr.tobytes())
 
@@ -427,14 +421,13 @@ def _compute_chunk(mode: int, part: FlatWorkload, params, tree,
                    step_budget: int | None,
                    telemetry: list | None = None,
                    stop=None) -> sim.SimResult:
-    """One fixed-shape `run_batch` call, fetched to host numpy (the copy
-    timed as `campaign.to_host`, a span of the call's last telemetry
-    record, when `telemetry` is given)."""
-    res = sim.run_batch(mode, part, params, tree=tree,
-                        rate_threshold=rate_threshold, plan=plan,
-                        batch_size=batch, devices=list(devices),
-                        device=devices[0], step_budget=step_budget,
-                        telemetry=telemetry, stop=stop)
+    """One chunk of `batch` lanes (`Sweep.lanes`; `params` the `Sweep`'s)
+    through `simulator.run_chunk`, fetched to host numpy (the copy timed
+    as `campaign.to_host`, a span of the call's last telemetry record,
+    when `telemetry` is given)."""
+    res = sim.run_chunk(sim.simulate_batch, mode, params, devices, part,
+                        tree, rate_threshold, plan, step_budget, telemetry,
+                        stop)
     t0 = time.time_ns()
     out = sim.to_numpy(res)
     if telemetry:
@@ -502,64 +495,29 @@ def run_campaign(mode: int, wls, params=None, tree=None,
     packed or not. `stats["spans"]` times the call's host phases (`Span`).
     """
     t_run = time.time_ns()
-    devs = sim._resolve_devices(devices, device)
-    D = len(devs)
-    params = params or sim.make_params(device=devs[0])
-    tree = tree if tree is not None else sim.always_fast_tree(devs[0])
     retry = retry or RetryPolicy()
-    stacked = wls if isinstance(wls, FlatWorkload) else stack_workloads(wls)
-    stacked = FlatWorkload(*[np.asarray(f) for f in stacked])
-    n = int(stacked.task_type.shape[0])
-    if plan is not None:
-        plan = flt.validate_plan(
-            plan, n_pes=params.pe_cluster.shape[0],
-            n_clusters=params.cluster_pe_mask.shape[0])
-        plan = flt.FaultPlan(*[np.asarray(f) for f in plan])
-    rate_threshold = _host(rate_threshold).astype(np.float32)
-
-    if batch_size is not None and batch_size <= 0:
-        raise ValueError(f"batch_size must be positive, got {batch_size}")
-    # identical chunk geometry to run_batch: clamp, round up to a device
-    # multiple, pad the ragged tail by replaying the last real scenario
-    B = n if batch_size is None else min(batch_size, n)
-    B = -(-B // D) * D
-    n_pad = -(-n // B) * B
-    n_chunks = n_pad // B
+    sw = sim.prepare_sweep(wls, params, tree, rate_threshold, plan,
+                           batch_size, devices, device, "run_campaign")
+    n = sw.n
+    B, lanes = sim.chunk_layout(n, batch_size, len(sw.devs))
+    n_chunks = len(lanes) // B
     # length-aware packing: schedule scenarios in descending predicted
     # length so each fixed-shape chunk's lanes retire together and the
     # padded tail chunk (which replays its last scenario) is the cheapest.
     # The stable sort keeps the layout (and hence checkpoint addressing)
     # deterministic for resume.
     do_pack = _resolve_pack(pack) and n_chunks > 1
-    if do_pack:
-        perm = np.argsort(-predicted_events(stacked), kind="stable")
-    else:
-        perm = np.arange(n)
-    # schedule order incl. the replayed-pad tail (grid indices per lane)
-    sched = np.concatenate([perm, np.full(n_pad - n, perm[-1] if n else 0,
-                                          dtype=perm.dtype)])
-
-    tree_np = type(tree)(*[_host(f) for f in tree])
-    tree_b = tree_np.feat.ndim == 2
-    thr_b = rate_threshold.ndim >= 1
-    plan_b = plan is not None and flt.is_batched(plan)
-    if plan_b and plan.pe_fail_at.shape[0] != n:
-        raise ValueError(
-            f"run_campaign: batched plan has {plan.pe_fail_at.shape[0]} "
-            f"scenarios but the workload has {n}")
-
-    def make_args(ids: np.ndarray):
-        part = FlatWorkload(*[f[ids] for f in stacked])
-        t = type(tree)(*[f[ids] for f in tree_np]) if tree_b else tree_np
-        rt = rate_threshold[ids] if thr_b else rate_threshold
-        pl = flt.FaultPlan(*[f[ids] for f in plan]) if plan_b else plan
-        return part, t, rt, pl
+    perm = (np.argsort(-predicted_events(sw.wl), kind="stable") if do_pack
+            else np.arange(n))
+    # each lane's grid index, in schedule order, the pad included
+    sched = perm[lanes]
 
     stats = CampaignStats(n_scenarios=n, n_chunks=n_chunks,
                           packed=bool(do_pack))
     cdir = None
     if checkpoint_dir:
-        h = spec_hash(mode, stacked, params, tree_np, rate_threshold, plan)
+        h = spec_hash(mode, sw.wl, sw.params[sw.devs[0]], sw.tree, sw.thr,
+                      sw.plan)
         manifest = {
             "version": FORMAT_VERSION, "spec_hash": h, "mode": int(mode),
             "n_scenarios": n, "chunk_size": B, "n_chunks": n_chunks,
@@ -586,8 +544,8 @@ def run_campaign(mode: int, wls, params=None, tree=None,
         if res is None:
             ids = sched[ci * B:(ci + 1) * B]
             res, meta = _run_chunk_with_retries(
-                mode, make_args, ids, params, B, devs, watchdog_s,
-                step_budget, retry, rng, stats, ci)
+                mode, sw, ids, B, watchdog_s, step_budget, retry, rng,
+                stats, ci)
             stats.chunk_wall_s.append(meta["wall_s"])
             stats.chunks_computed += 1
             if path:
@@ -627,7 +585,7 @@ def _end_attempt(stats: CampaignStats, t0: int, chunk: tuple, outcome: str,
     return t
 
 
-def _run_chunk_with_retries(mode, make_args, chunk_ids, params, B, devs,
+def _run_chunk_with_retries(mode, sw: sim.Sweep, chunk_ids, B,
                             watchdog_s, step_budget, retry: RetryPolicy,
                             rng, stats: CampaignStats, ci: int) -> tuple:
     """Attempt chunk `ci` until it succeeds or the retry budget runs out.
@@ -637,7 +595,7 @@ def _run_chunk_with_retries(mode, make_args, chunk_ids, params, B, devs,
     trips). The returned result always covers the full `B` scenarios.
     Each attempt is a `campaign.chunk` span and each wait between two a
     `campaign.backoff`, end to end, so `meta["wall_s"]` is their sum."""
-    D = len(devs)
+    D = len(sw.devs)
     label = f"chunk {ci}"
     b = B
     budget = step_budget
@@ -663,9 +621,8 @@ def _run_chunk_with_retries(mode, make_args, chunk_ids, params, B, devs,
         chunk = (ci, attempt)
         oom = False
         try:
-            res = _attempt_chunk(mode, make_args, chunk_ids, params, B, b,
-                                 devs, budget, watchdog_s, telemetry=tel,
-                                 label=label)
+            res = _attempt_chunk(mode, sw, chunk_ids, B, b, budget,
+                                 watchdog_s, telemetry=tel, label=label)
         except ChunkTimeout as e:
             stats.timeouts += 1
             meta["timeouts"] += 1
@@ -716,31 +673,24 @@ def _run_chunk_with_retries(mode, make_args, chunk_ids, params, B, devs,
         f"(last failure: {failure})") from failure
 
 
-def _attempt_chunk(mode, make_args, chunk_ids, params, B, b, devs,
-                   budget, watchdog_s, telemetry: list | None = None,
+def _attempt_chunk(mode, sw: sim.Sweep, chunk_ids, B, b, budget,
+                   watchdog_s, telemetry: list | None = None,
                    label: str = "chunk") -> sim.SimResult:
-    """One attempt at a chunk, possibly as `ceil(B/b)` sub-dispatches
-    when OOM shrank the batch below the chunk size. Sub-chunks are padded
-    the same way as the campaign pads the global tail (replay the last
-    scenario, slice the pad off), so shrinking never changes results."""
-    if b >= B:
-        part, t, rt, pl = make_args(chunk_ids)
-        return _call_with_watchdog(
-            lambda stop: _compute_chunk(mode, part, params, t, rt, pl, B,
-                                        devs, budget, telemetry=telemetry,
-                                        stop=stop),
-            watchdog_s, label)
-    n_sub = -(-B // b) * b
-    sub_idx = np.minimum(np.arange(n_sub), B - 1)
+    """One attempt at a chunk, as `ceil(B/b)` sub-dispatches when OOM
+    shrank the batch below the chunk size, laid out as the sweep's chunks
+    are (`simulator.chunk_layout`: the last scenario replayed, the pad
+    sliced off), so shrinking never changes results."""
+    b, lanes = sim.chunk_layout(B, b, len(sw.devs))
     subs = []
-    for lo in range(0, n_sub, b):
-        ids = chunk_ids[sub_idx[lo:lo + b]]
-        part, t, rt, pl = make_args(ids)
+    for lo in range(0, len(lanes), b):
+        part, t, rt, pl = sw.lanes(chunk_ids[lanes[lo:lo + b]])
         subs.append(_call_with_watchdog(
             lambda stop, part=part, t=t, rt=rt, pl=pl: _compute_chunk(
-                mode, part, params, t, rt, pl, b, devs, budget,
+                mode, part, sw.params, t, rt, pl, b, sw.devs, budget,
                 telemetry=telemetry, stop=stop),
             watchdog_s, label))
+    if len(subs) == 1:
+        return subs[0]
     return sim.SimResult(*[
         np.concatenate(fields, axis=0)[:B] for fields in zip(*subs)
     ])

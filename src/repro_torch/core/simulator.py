@@ -33,6 +33,9 @@ one-event-per-iteration loop, and `n_iters` still counts events. `run`
 is the engine with S = 1; `run_batch` cuts a sweep into fixed-shape
 chunks and splits each over its devices (the reference's `shard_map`:
 no collective, so per-scenario results do not depend on the split).
+It is three steps, which `campaign.run_campaign` shares: the inputs
+checked once a sweep (`prepare_sweep`), the chunk layout
+(`chunk_layout`), and one chunk's device split (`run_chunk`).
 The step has no host sync: finished lanes are frozen by the `run` gate,
 and the loop polls `any(running)` only before each block of
 `POLL_EVERY` super-steps (and there ends early when its caller sets
@@ -1321,9 +1324,9 @@ class Stopped(RuntimeError):
 #   engine.finalize     the results gathered, the stream drained
 # A call with a kept graph has no eager block and no capture; the
 # record's `graph` says which path ran: "hit", "captured" or "eager".
-# Through `run_batch`, `engine.setup` starts where the part's inputs are
-# first sliced; `campaign._compute_chunk` adds `campaign.to_host` to the
-# last record.
+# Through `run_chunk`, `engine.setup` starts where the part's inputs are
+# cut from its chunk; `campaign._compute_chunk` adds `campaign.to_host`
+# to the last record.
 ENGINE_SPANS = ("engine.setup", "engine.eager_block", "engine.capture",
                 "engine.replays", "engine.finalize")
 
@@ -1680,19 +1683,16 @@ def run_batch(mode: int, wls, params: SimParams | None = None,
     `faults.FaultPlan`, stacked with `faults.stack_plans`) may vary per
     scenario; a plan without the axis is shared. `step_budget` caps each
     scenario's events. `batch_size` cuts the axis into fixed-shape
-    chunks; the final chunk is padded by replaying the last scenario and
-    the pad lanes are dropped, so every chunk has the same shape.
+    chunks, the last padded (`chunk_layout`).
 
     `devices` (see `_resolve_devices`; default `REPRO_BENCH_DEVICES`, else
-    every visible card for `device="cuda"`) splits each chunk's scenario
-    axis into equal parts, one a device (the chunk is rounded up to a
-    multiple of their count). Each part runs on its device, on a stream
-    and a captured graph of its own; parts on distinct cards run at the
-    same time, parts on a repeated device one after another. Lanes never
-    interact, so per-scenario results do not depend on the chunking, the
-    padding or the devices, bit for bit. Returns a `SimResult` of tensors
-    on `device`. When `telemetry` is a list, one record per part is
-    appended; `stop` is passed to each part (`simulate_batch`).
+    every visible card for `device="cuda"`) splits each chunk into equal
+    parts, one a device (`run_chunk`), each on a stream and a captured
+    graph of its own. Lanes never interact, so per-scenario results do
+    not depend on the chunking, the padding or the devices, bit for bit.
+    Returns a `SimResult` of tensors on `device`. When `telemetry` is a
+    list, one record per part is appended; `stop` is passed to each part
+    (`simulate_batch`).
     """
     return _run_batch(simulate_batch, mode, wls, params, tree,
                       rate_threshold, batch_size, plan, step_budget, device,
@@ -1734,6 +1734,129 @@ def _on_device(dev: torch.device):
             else contextlib.nullcontext())
 
 
+def _host(x) -> np.ndarray:
+    """`x` (a tensor on any device, or array-like) as host numpy."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+class Sweep(NamedTuple):
+    """A sweep's inputs, checked once (`prepare_sweep`): the workload,
+    tree, thresholds and plan of its `n` lanes as host numpy, each with
+    a leading `[n]` axis or shared by every lane, and `params[d]` on
+    each device `d` of `devs`."""
+
+    n: int
+    devs: tuple
+    params: dict
+    wl: FlatWorkload
+    tree: DTree
+    thr: np.ndarray
+    plan: flt.FaultPlan | None
+
+    def lanes(self, ids: np.ndarray) -> tuple:
+        """`(workload, tree, thresholds, plan)` of the lanes `ids`: each
+        batched input indexed once, a shared tree and threshold repeated
+        (the engine takes them per lane), a shared plan whole."""
+        def take(x: np.ndarray, batched: bool) -> np.ndarray:
+            return x[ids] if batched else np.repeat(x[None], len(ids), 0)
+
+        plan_b = self.plan is not None and flt.is_batched(self.plan)
+        return (FlatWorkload(*[x[ids] for x in self.wl]),
+                DTree(*[take(x, self.tree.feat.ndim == 2)
+                        for x in self.tree]),
+                take(self.thr, self.thr.ndim == 1),
+                flt.FaultPlan(*[x[ids] for x in self.plan]) if plan_b
+                else self.plan)
+
+
+def prepare_sweep(wls, params: SimParams | None, tree: DTree | None,
+                  rate_threshold, plan, batch_size: int | None, devices,
+                  device, caller: str) -> Sweep:
+    """`run_batch`'s sweep arguments as a `Sweep`: the workload stacked,
+    the devices resolved (`_resolve_devices`), the params put on each,
+    the tree and threshold defaulted, every size and shape checked
+    (`caller` names the sweep in a plan's error)."""
+    if batch_size is not None and batch_size <= 0:
+        raise ValueError(f"batch_size must be positive, got {batch_size}")
+    devs = _resolve_devices(devices, device)
+    params = params or make_params(device=devs[0])
+    wl = wls if isinstance(wls, FlatWorkload) else stack_workloads(wls)
+    wl = FlatWorkload(*[np.asarray(x) for x in wl])
+    n = int(wl.task_type.shape[0])
+    thr = _host(rate_threshold).astype(np.float32)
+    if thr.ndim and thr.shape != (n,):
+        raise ValueError(f"rate_threshold: expected a scalar or [{n}], got "
+                         f"{tuple(thr.shape)}")
+    tree = DTree(*[_host(x) for x in (
+        tree if tree is not None else always_fast_tree("cpu"))])
+    if tree.feat.ndim == 2 and tree.feat.shape[0] != n:
+        raise ValueError(f"tree: {tree.feat.shape[0]} trees for {n} "
+                         "scenarios")
+    if plan is not None:
+        flt.validate_plan(plan, n_pes=params.pe_cluster.shape[0],
+                          n_clusters=params.cluster_pe_mask.shape[0])
+        plan = flt.FaultPlan(*[np.asarray(x) for x in plan])
+        if flt.is_batched(plan) and plan.pe_fail_at.shape[0] != n:
+            raise ValueError(
+                f"{caller}: batched plan has {plan.pe_fail_at.shape[0]} "
+                f"scenarios but the workload has {n}")
+    return Sweep(n, devs, {d: SimParams(*[x.to(d) for x in params])
+                           for d in devs}, wl, tree, thr, plan)
+
+
+def chunk_layout(n: int, batch_size: int | None, n_dev: int) -> tuple:
+    """`(B, order)`: the chunk size B of `n` lanes over `n_dev` devices
+    (`batch_size` clamped to n, rounded up to a multiple of `n_dev`), and
+    the lanes in order, padded to a multiple of B by replaying the last
+    one (the pad's results are dropped)."""
+    B = n if batch_size is None else min(batch_size, n)
+    B = -(-B // n_dev) * n_dev
+    return B, np.minimum(np.arange(-(-n // B) * B), n - 1)
+
+
+def run_chunk(simulate, mode: int, params: dict, devs: tuple,
+              part: FlatWorkload, tree: DTree, thr: np.ndarray, plan,
+              step_budget: int | None = None, telemetry: list | None = None,
+              stop=None) -> SimResult:
+    """One chunk's lanes (`Sweep.lanes`) in one contiguous part a device
+    of `devs`, each run by `simulate` with `params[device]`: parts on
+    distinct cards at the same time, one thread a card, parts on a
+    repeated device one after another. Returns the result on `devs[0]`.
+    When `telemetry` is a list, one record per part is appended."""
+    b = int(part.task_type.shape[0]) // len(devs)
+    plan_b = plan is not None and flt.is_batched(plan)
+
+    def run_part(k: int) -> SimResult:
+        t0 = time.time_ns()         # the part's `engine.setup` starts here
+        d, cut = devs[k], slice(k * b, (k + 1) * b)
+        tel = None if telemetry is None else []
+        try:
+            with _on_device(d):
+                return simulate(
+                    mode, params[d], FlatWorkload(*[x[cut] for x in part]),
+                    DTree(*[torch.as_tensor(x[cut], device=d)
+                            for x in tree]),
+                    torch.as_tensor(thr[cut], device=d), telemetry=tel,
+                    plan=(flt.FaultPlan(*[x[cut] for x in plan]) if plan_b
+                          else plan),
+                    step_budget=step_budget, stop=stop)
+        finally:
+            for rec in tel or ():
+                _start_at(rec, t0)
+                telemetry.append(rec)
+
+    if len(devs) == 1:
+        return run_part(0)
+    cards = dict.fromkeys(devs)
+    with concurrent.futures.ThreadPoolExecutor(len(cards)) as ex:
+        for d in cards:
+            cards[d] = ex.submit(lambda d=d: [
+                run_part(k) for k, e in enumerate(devs) if e == d])
+        done = {d: iter(f.result()) for d, f in cards.items()}
+    return SimResult(*[torch.cat([x.to(devs[0]) for x in xs]) for xs in
+                       zip(*[next(done[d]) for d in devs])])
+
+
 def _run_batch(simulate, mode: int, wls, params: SimParams | None = None,
                tree: DTree | None = None, rate_threshold=1e9,
                batch_size: int | None = None, plan=None,
@@ -1742,90 +1865,12 @@ def _run_batch(simulate, mode: int, wls, params: SimParams | None = None,
                stop=None) -> SimResult:
     """`run_batch` with each part run by `simulate` (`simulate_batch`, or
     `_simulate_eager` to hold the captured path to the eager one)."""
-    if batch_size is not None and batch_size <= 0:
-        raise ValueError(f"batch_size must be positive, got {batch_size}")
-    dev = resolve(device)
-    devs = _resolve_devices(devices, device)
-    params = SimParams(*[x.to(dev) for x in (params or make_params(
-        device=dev))])
-    tree = DTree(*[torch.as_tensor(x, device=dev)
-                   for x in (tree or always_fast_tree(dev))])
-    stacked = wls if isinstance(wls, FlatWorkload) else stack_workloads(wls)
-    n = int(stacked.task_type.shape[0])
-    thr = torch.as_tensor(rate_threshold, dtype=torch.float32, device=dev)
-    thr = thr.expand(n) if thr.dim() == 0 else thr
-    if thr.shape != (n,):
-        raise ValueError(f"rate_threshold: expected a scalar or [{n}], got "
-                         f"{tuple(thr.shape)}")
-    tree_b = tree.feat.dim() == 2
-    if not tree_b:
-        tree = DTree(*[x.expand(n, *x.shape) for x in tree])
-    elif tree.feat.shape[0] != n:
-        raise ValueError(f"tree: {tree.feat.shape[0]} trees for {n} "
-                         "scenarios")
-    plan_b = False
-    if plan is not None:
-        flt.validate_plan(plan, n_pes=params.pe_cluster.shape[0],
-                          n_clusters=params.cluster_pe_mask.shape[0])
-        plan = flt.FaultPlan(*[np.asarray(x) for x in plan])
-        plan_b = flt.is_batched(plan)
-        if plan_b and plan.pe_fail_at.shape[0] != n:
-            raise ValueError(
-                f"run_batch: batched plan has {plan.pe_fail_at.shape[0]} "
-                f"scenarios but the workload has {n}")
-
-    # the chunk: clamped to n, rounded up to a multiple of the devices
-    D = len(devs)
-    B = n if batch_size is None else min(batch_size, n)
-    B = -(-B // D) * D
-    b = B // D
-    n_pad = -(-n // B) * B
-    # pad lanes replay the last real scenario; their results are dropped
-    pad_idx = np.minimum(np.arange(n_pad), n - 1)
-    on_dev = {d: SimParams(*[x.to(d) for x in params]) for d in set(devs)}
-
-    def run_part(d: torch.device, ids: np.ndarray) -> SimResult:
-        t0 = time.time_ns()         # the part's `engine.setup` starts here
-        tel = None if telemetry is None else []
-        try:
-            tids = torch.as_tensor(ids, device=dev)
-            part = FlatWorkload(*[np.asarray(x)[ids] for x in stacked])
-            part_plan = (flt.FaultPlan(*[x[ids] for x in plan]) if plan_b
-                         else plan)
-            with _on_device(d):
-                return simulate(
-                    mode, on_dev[d], part,
-                    DTree(*[x[tids].to(d) for x in tree]), thr[tids].to(d),
-                    telemetry=tel, plan=part_plan,
-                    step_budget=step_budget, stop=stop)
-        finally:
-            for rec in tel or ():
-                _start_at(rec, t0)
-                telemetry.append(rec)
-
-    def run_parts(parts: list) -> list:
-        return [run_part(d, ids) for d, ids in parts]
-
-    chunks = []
-    for lo in range(0, n_pad, B):
-        parts = [(d, pad_idx[lo + k * b:lo + (k + 1) * b])
-                 for k, d in enumerate(devs)]
-        if D == 1:
-            out = run_parts(parts)
-        else:
-            # one thread a device, each running its parts in order, so
-            # parts on distinct cards overlap; every thread is joined
-            by_dev: dict = {}
-            for k, (d, _) in enumerate(parts):
-                by_dev.setdefault(d, []).append(k)
-            out = [None] * D
-            with concurrent.futures.ThreadPoolExecutor(len(by_dev)) as ex:
-                futs = [(ks, ex.submit(run_parts, [parts[k] for k in ks]))
-                        for ks in by_dev.values()]
-                for ks, fut in futs:
-                    for k, r in zip(ks, fut.result()):
-                        out[k] = r
-        chunks.extend(SimResult(*[x.to(dev) for x in r]) for r in out)
-    if len(chunks) == 1:
-        return chunks[0]
-    return SimResult(*[torch.cat(xs, 0)[:n] for xs in zip(*chunks)])
+    sw = prepare_sweep(wls, params, tree, rate_threshold, plan, batch_size,
+                       devices, device, "run_batch")
+    B, order = chunk_layout(sw.n, batch_size, len(sw.devs))
+    chunks = [run_chunk(simulate, mode, sw.params, sw.devs,
+                        *sw.lanes(order[lo:lo + B]), step_budget, telemetry,
+                        stop) for lo in range(0, len(order), B)]
+    res = chunks[0] if len(chunks) == 1 else SimResult(
+        *[torch.cat(xs) for xs in zip(*chunks)])
+    return SimResult(*[x[:sw.n].to(resolve(device)) for x in res])

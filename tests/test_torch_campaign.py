@@ -655,6 +655,84 @@ def test_spec_hash_sensitivity():
     assert h(sim.MODE_LUT, 500.0) != h(sim.MODE_LUT, 500.0, tree=tree2)
 
 
+def _stacked_plans():
+    return flt.stack_plans([flt.random_plan(s, deadline_us=3000.0)
+                            for s in range(len(WLS))])
+
+
+# Spec hashes of format v2, which name the campaign directories already
+# on disk: a change that moves one makes every such directory miss.
+PINNED_HASHES = {
+    "defaults": (sim.MODE_LUT, dict, "7fcb4e8a9642bb634754f8495a1f32b0"
+                 "02efbad69151cb282bb185afd752363b"),
+    "tree-thr-plan": (sim.MODE_DAS, lambda: dict(
+        tree=_tree(), rate_threshold=np.full(len(WLS), 500.0),
+        plan=_stacked_plans()), "9d302f06daf6d54e8e73c1307b844578"
+        "572f600c7e746c38e441fba83c6e1754"),
+    "shared-plan": (sim.MODE_THRESHOLD, lambda: dict(
+        rate_threshold=500.0, plan=flt.healthy_plan()),
+        "4b901106ccc94d63799f7d593cb6638b8f5a8ac4536002e14c5222763baeccfb"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PINNED_HASHES))
+def test_spec_hash_is_pinned(case, tmp_path, monkeypatch):
+    """A campaign's spec hashes as it always has, over the inputs that
+    the campaign prepares (defaults applied, threshold as float32); the
+    directory is named by it. No chunk runs."""
+    mode, kw, want = PINNED_HASHES[case]
+    _kill_after(monkeypatch, 0)
+    with pytest.raises(_Killed):
+        _campaign(mode, checkpoint_dir=str(tmp_path), **kw())
+    cdir, = tmp_path.iterdir()
+    man = json.loads((cdir / camp.MANIFEST_NAME).read_text())
+    assert man["spec_hash"] == want and cdir.name == f"{want[:16]}-b{B}"
+    if case == "tree-thr-plan":
+        assert camp.spec_hash(
+            mode, workloads.stack_workloads(WLS), PARAMS, _tree(),
+            np.full(len(WLS), 500.0, np.float32), _stacked_plans()) == want
+
+
+def test_campaign_prepares_once_and_indexes_once_a_chunk(monkeypatch):
+    """The campaign runs the sweep's steps itself, never `run_batch`:
+    the plan is checked once a sweep, and each chunk's lanes are cut
+    from the inputs once (`Sweep.lanes`), also when an OOM shrinks it
+    into sub-dispatches (one cut each)."""
+    calls = {"validate": 0, "lanes": 0}
+    validate, lanes = flt.validate_plan, sim.Sweep.lanes
+
+    def counted(name, real):
+        def call(*a, **kw):
+            calls[name] += 1
+            return real(*a, **kw)
+        return call
+
+    plans = _stacked_plans()
+    ref = _run_batch(sim.MODE_LUT, plan=plans)
+    monkeypatch.setattr(flt, "validate_plan", counted("validate", validate))
+    monkeypatch.setattr(sim.Sweep, "lanes", counted("lanes", lanes))
+    monkeypatch.setattr(sim, "run_batch", None)
+    out = _campaign(plan=plans)
+    assert calls == {"validate": 1, "lanes": N_CHUNKS}
+    _assert_bit_exact(ref, out.result)
+
+    real = camp._compute_chunk
+
+    def oom_once(mode, part, params, tree, rt, plan, batch, *a, **kw):
+        if batch == B and not calls.get("oom"):
+            calls["oom"] = 1
+            raise torch.OutOfMemoryError("CUDA out of memory")
+        return real(mode, part, params, tree, rt, plan, batch, *a, **kw)
+
+    monkeypatch.setattr(camp, "_compute_chunk", oom_once)
+    calls.update(validate=0, lanes=0)
+    out = _campaign(plan=plans)
+    # chunk 0: the failed attempt, then two sub-dispatches of one lane
+    assert calls["validate"] == 1 and calls["lanes"] == N_CHUNKS + 2
+    assert out.stats["shrinks"] == 1
+    _assert_bit_exact(ref, out.result)
+
+
 def test_batch_size_validation():
     with pytest.raises(ValueError, match="positive"):
         _campaign(batch_size=0)

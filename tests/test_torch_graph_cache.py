@@ -291,13 +291,16 @@ def test_the_cpu_and_eager_paths_keep_nothing():
 
 
 def test_repeated_device_parts_of_one_shape_capture_once():
-    """`run_batch` over one device named twice: the first part captures,
-    the second replays its graph; bit-equal to the eager loop."""
+    """A chunk split over one device named twice (`run_chunk`): the first
+    part captures, the second replays its graph; bit-equal to the eager
+    loop."""
     tel = []
     wls = SUITE.build_many(CELLS * 2)
-    res = sim._run_batch(functools.partial(sim._simulate, graph=True),
-                         sim.MODE_ETF, wls, PARAMS, devices=["cpu", "cpu"],
-                         device="cpu", telemetry=tel)
+    sw = sim.prepare_sweep(wls, PARAMS, None, 1e9, None, None,
+                           ["cpu", "cpu"], "cpu", "run_batch")
+    res = sim.run_chunk(functools.partial(sim._simulate, graph=True),
+                        sim.MODE_ETF, sw.params, sw.devs,
+                        *sw.lanes(np.arange(sw.n)), telemetry=tel)
     assert [r["graph"] for r in tel] == ["captured", "hit"]
     want = sim._run_batch(sim._simulate_eager, sim.MODE_ETF, wls, PARAMS,
                           device="cpu")

@@ -8,7 +8,9 @@ same time. Per-scenario results must not depend on `batch_size`, the
 device count or the final chunk's padding, bit for bit, in every mode,
 with and without stacked fault plans; and they must be the JAX
 package's on the same inputs (schedule and integer fields bit-equal,
-float aggregates within 1e-6 relative).
+float aggregates within 1e-6 relative). The sweep's steps are pinned
+too: the chunk layout (`simulator.chunk_layout`) and the inputs'
+checks (`simulator.prepare_sweep`), which `run_campaign` shares.
 """
 import functools
 import os
@@ -22,7 +24,8 @@ import numpy as np  # noqa: E402
 
 from repro.core import faults as jflt, simulator as jsim  # noqa: E402
 from repro.core import workloads as jwl  # noqa: E402
-from repro_torch.core import faults as flt, simulator as sim  # noqa: E402
+from repro_torch.core import campaign as camp, faults as flt  # noqa: E402
+from repro_torch.core import simulator as sim  # noqa: E402
 from repro_torch.core import workloads  # noqa: E402
 
 PARAMS = sim.make_params(device="cpu")
@@ -236,3 +239,47 @@ def test_devices_env_knob(monkeypatch):
     monkeypatch.setenv("REPRO_BENCH_DEVICES", "2")
     with pytest.raises(ValueError, match="out of range"):
         _run_batch(sim.MODE_LUT)
+
+
+@pytest.mark.parametrize("n,batch,n_dev,B,order", [
+    (5, None, 1, 5, [0, 1, 2, 3, 4]),
+    (5, 8, 1, 5, [0, 1, 2, 3, 4]),                  # batch above n
+    (5, 2, 1, 2, [0, 1, 2, 3, 4, 4]),               # ragged tail
+    (5, 3, 2, 4, [0, 1, 2, 3, 4, 4, 4, 4]),         # two devices
+    (5, None, 4, 8, [0, 1, 2, 3, 4, 4, 4, 4]),      # n below the devices
+    (4, 2, 2, 2, [0, 1, 2, 3]),                     # a chunk shrunk by 2
+    (6, 4, 2, 4, [0, 1, 2, 3, 4, 5, 5, 5]),         # shrunk, ragged
+    (2, 1, 1, 1, [0, 1]),                           # shrunk to one lane
+], ids=["whole", "batch-above-n", "ragged", "two-devices", "four-devices",
+        "shrunk", "shrunk-ragged", "shrunk-to-one"])
+def test_chunk_layout(n, batch, n_dev, B, order):
+    """The chunk size is the batch clamped to n and rounded up to a
+    multiple of the devices; the order pads to a multiple of it by
+    replaying the last lane."""
+    got_B, got = sim.chunk_layout(n, batch, n_dev)
+    assert got_B == B and got.tolist() == order
+    assert B % n_dev == 0 and len(got) % B == 0 and len(got) - n < B
+
+
+_ERRORS = {
+    "batch": ({"batch_size": 0}, "batch_size must be positive, got 0"),
+    "threshold": ({"rate_threshold": np.full(3, 500.0)},
+                  r"rate_threshold: expected a scalar or \[5\], got \(3,\)"),
+    "tree": ({"tree": sim.DTree(*[x.expand(2, *x.shape)
+                                  for x in _mixed_tree()])},
+             "tree: 2 trees for 5 scenarios"),
+    "plan": ({"plan": flt.stack_plans([flt.random_plan(s)
+                                       for s in range(2)])},
+             "{who}: batched plan has 2 scenarios but the workload has 5"),
+}
+
+
+@pytest.mark.parametrize("who", ["run_batch", "run_campaign"])
+@pytest.mark.parametrize("case", sorted(_ERRORS))
+def test_sweep_inputs_checked_in_one_place(case, who):
+    """Every size and shape error of a sweep comes from `prepare_sweep`,
+    with one text, through `run_batch` and `run_campaign` alike."""
+    kw, msg = _ERRORS[case]
+    run = sim.run_batch if who == "run_batch" else camp.run_campaign
+    with pytest.raises(ValueError, match=msg.format(who=who)):
+        run(sim.MODE_LUT, WLS, PARAMS, device="cpu", **kw)
