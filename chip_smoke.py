@@ -53,8 +53,12 @@ paths through them:
     4096 tokens and its loss, serving 4 prompts of 4096 with 32 greedy
     decode steps at the no-drop MoE capacity, expanded and again
     weight-absorbed, the served logits held to 1.5x the bf16 model's own
-    rounding and, in fp32, to 1e-4; no kernel launch (MLA
-    runs the plain attention, as in the reference); then the model cut
+    rounding and, in fp32, to 1e-4; MLA runs the plain attention, as in
+    the reference, but for the absorbed decode's attention over the bf16
+    latent cache, which launches the MLA decode kernel once a layer and
+    step (counted; the fp32 decode takes the plain chain); the decode
+    graphs at the LM cell's batch, each replay bit-equal to the eager
+    step, 27 kernel calls a capture (phase 10b); then the model cut
     to 3 layers in fp32, card against CPU (logits, aux, loss, prefill,
     both decodes, the experts chosen in every call), and bf16 at rest
     bit-equal to fp32 at rest;
@@ -94,9 +98,15 @@ serialise and the bf16 SSD kernel spills nothing. Phase 3 holds the
 decision kernels (the fixed and the generic search, the fused push rows)
 to their plain versions bit for bit, and the three LM wrappers, on
 widths and dtypes the models do not make (flash with Dv != Dh, the scans
-with mixed dtypes), to theirs, and checks that each of the three refuses
+with mixed dtypes), to theirs, and checks that each of the three, and the
+MLA decode kernel's, refuses
 a CUDA input that requires grad (none has a backward) and launches as
-before under `inference_mode`. Phase 3 also times
+before under `inference_mode`. Phase 3d holds the MLA decode kernel to
+its plain version (the model's absorbed chain) at the LM cell's batch
+and caches with ragged valid lengths and at MiniCPM3's 40 heads, fails
+unless four planted faults exceed its limits, and times it beside its
+byte bound and the plain version at each of the cell's caches. Phase 3
+also times
 flash attention beside PyTorch's SDPA (the same band mask) and fails
 unless the kernel is the faster; it holds the RG-LRU scan bit for bit to
 its plain version on both routes (the TMA ring and, for inputs TMA
@@ -203,9 +213,10 @@ def phase_device():
 def libraries():
     from repro_torch.kernels.etf_ft import kernel as etf
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.mla_decode import kernel as mla
     from repro_torch.kernels.rg_lru import kernel as rg
     from repro_torch.kernels.ssd_scan import kernel as ssd
-    return (etf.LIBRARY, fa.LIBRARY, rg.LIBRARY, ssd.LIBRARY)
+    return (etf.LIBRARY, fa.LIBRARY, rg.LIBRARY, ssd.LIBRARY, mla.LIBRARY)
 
 
 # planted faults of the bf16 SSD kernel: each is the kernel's source with
@@ -308,12 +319,14 @@ def phase_build() -> dict:
     instructions (wgmma) in the SASS of flash attention and of the SSD
     scan."""
     from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels.mla_decode import kernel as mla
     from repro_torch.kernels.rg_lru import kernel as rg
     from repro_torch.kernels.ssd_scan import kernel as ssd
     libs = list(libraries())
     ssd_faults = fault_libraries(ssd, SSD_FAULTS)
     rg_faults = fault_libraries(rg, RG_FAULTS)
-    faults = ssd_faults + rg_faults
+    mla_faults = fault_libraries(mla, MLA_FAULTS)
+    faults = ssd_faults + rg_faults + mla_faults
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs) + len(faults)) as pool:
         futs = [pool.submit(lib.build) for lib in libs + faults]
@@ -346,9 +359,17 @@ def phase_build() -> dict:
         f"{use['spill_loads']} bytes")
     if use["spill_stores"] or use["spill_loads"]:
         raise AssertionError(f"ssd_scan_wgmma_kernel spills: {use}")
+    # the DeepSeek-V2-Lite instantiation, which the LM cell runs
+    mla_use = _ptxas_usage(by_name["mla_decode"],
+                           "mla_decode_kernelILi512ELi64ELi1E")
+    log(f"[2 build] mla_decode_kernel<512, 64, 1>: {mla_use['registers']} "
+        f"registers, spill stores {mla_use['spill_stores']} bytes, spill "
+        f"loads {mla_use['spill_loads']} bytes")
+    if mla_use["spill_stores"] or mla_use["spill_loads"]:
+        raise AssertionError(f"mla_decode_kernel spills: {mla_use}")
     log(f"[2 build] phase {time.perf_counter() - t0:.2f}s")
     return {"secs": secs, "ssd_ptxas": use, "ssd_faults": ssd_faults,
-            "rg_faults": rg_faults}
+            "rg_faults": rg_faults, "mla_faults": mla_faults}
 
 
 # ---------------------------------------------------------------------------
@@ -1296,6 +1317,219 @@ def phase_ssd_kernels(fault_libs) -> dict:
                              f"{t['cuda_core_ms']} ms")
     torch.cuda.empty_cache()
     return {"err": {"ssd_scan": err}, "timing": {"ssd_scan": t}}
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the MLA decode kernel at the LM cell's shapes
+# ---------------------------------------------------------------------------
+# The MLA decode kernel against its plain version (the model's absorbed
+# chain), both on the card in bf16, as max |error| over max |plain|. Both
+# round each softmax weight to bf16 once (2^-9; the kernel the
+# unnormalised weight, the plain version the normalised one) and the
+# output to bf16 (2^-9), and the two sum the norm's squares in another
+# order, which can move a latent's bf16 rounding (2^-8). An H100 reads
+# 2.4e-3 to 7.6e-3 at the cases below, and the kernel was as close as
+# the plain version to the same attention with fp32 weights and output.
+# The flash kernel's bf16 limit, which a half of the positions dropped,
+# the running max not rescaled, the norm or the rope scores left out
+# exceed (0.63 to 4.5).
+TOL_MLA_DECODE = 2e-2
+# and each row (batch, head) over its RMS, as TOL_FLASH_ROW, since a row
+# that averages hundreds of positions is far smaller than one that
+# attends to a single position: an H100 reads 2.5e-2 to 3.2e-2, the
+# planted faults 4.3 and more
+TOL_MLA_DECODE_ROW = 5e-2
+MLA_LENS = (702, 998, 1324, 1941)    # the cell's caches: prompt + 128
+MLA_BATCH = 64
+# planted faults of the kernel, in the form of SSD_FAULTS
+MLA_FAULTS = (
+    ("the norm left out",
+     (("const float inv = rsqrtf(ss[r] * (1.0f / R) + eps);",
+       "const float inv = 1.f + 0.f * ss[r] * eps;"),)),
+    ("the rope scores left out",
+     (("sv[i] = (sn + rsc[h * S::FS + lane]) * scale;",
+       "sv[i] = sn * scale;"),)),
+    ("the running max not rescaled",
+     (("alpha = expf(m_run[i] - mnew);", "alpha = 1.f;"),)),
+    ("the second group's positions dropped",
+     (("const float w1 = l1[h] > 0.f ? expf(a1 - M) : 0.f;",
+       "const float w1 = 0.f;"),)),
+)
+
+
+def _mla_inputs(B, L, H, R, Dr, valid, g):
+    """bf16 query and cache of one layer, the latent rows at RMS 0.25-4
+    (so that the norm matters), kv_norm 1 + 0.1 N(0, 1) in bf16 (as at
+    rest), int32 valid lengths and query positions (the last valid)."""
+    import torch
+    bf = torch.bfloat16
+    scale = 0.25 + 3.75 * torch.rand(B, L, 1, generator=g, device="cuda")
+    kv_valid = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    return ((2 * torch.randn(B, 1, H, R, generator=g, device="cuda"))
+            .to(bf),
+            torch.randn(B, 1, H, Dr, generator=g, device="cuda").to(bf),
+            (scale * torch.randn(B, L, R, generator=g, device="cuda"))
+            .to(bf),
+            torch.randn(B, L, Dr, generator=g, device="cuda").to(bf),
+            (1 + 0.1 * torch.randn(R, generator=g, device="cuda")).to(bf),
+            kv_valid - 1, kv_valid)
+
+
+def _mla_launch(lib, args, eps, scale):
+    """The kernel of library `lib` (the built one, or a planted fault) on
+    `args`, launched as `kernel.mla_decode_fwd` launches it (not
+    counted)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mla_decode import kernel
+    q_lat, q_rope, c_kv, k_rope, norm, q_pos, kv_valid = args
+    B, _, H, R = q_lat.shape
+    L, Dr = c_kv.shape[1], k_rope.shape[-1]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, groups = kernel.layout(B, L, H, R, Dr, n_sm)
+    o = torch.empty_like(q_lat)
+    P = _build.ptr
+    err = lib.load().mla_decode_launch(
+        P(q_lat), P(q_rope), P(c_kv), P(k_rope), P(norm), 1, P(q_pos),
+        q_pos.stride(0), P(kv_valid), kv_valid.stride(0), B, L, H, R, Dr,
+        splits, groups, float(eps), float(scale), P(o),
+        _build.stream(torch.device("cuda")))
+    if err:
+        raise RuntimeError(f"{lib.name}: CUDA error {err}")
+    return o
+
+
+def _mla_errors(got, want) -> tuple[float, float]:
+    """(max |error| / max |want|, the largest of each (batch, head) row's
+    max |error| over the row's RMS)."""
+    import torch
+    d = (got.float() - want.float()).abs()
+    w = want.float()
+    glob = float(d.max() / w.abs().max())
+    rms = w.pow(2).mean(-1).sqrt().clamp_min(1e-30)
+    return glob, float((d.amax(-1) / rms).max())
+
+
+def _mla_device_us(fns, iters=60) -> float:
+    """Device time a call: `iters` calls cycling over `fns`, each on its
+    own inputs (so no call finds the last one's bytes in the 50 MB L2),
+    in one CUDA graph replayed between two events; the best of 5."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in fns:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    best = float("inf")
+    for _ in range(5):
+        t0.record()
+        g.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        best = min(best, t0.elapsed_time(t1) * 1e3 / iters)
+    return best
+
+
+def phase_mla_decode(fault_libs) -> dict:
+    """The MLA decode kernel against its plain version at DeepSeek-V2-
+    Lite's widths at the LM cell's batch and caches (ragged valid lengths:
+    1, a tile, a tile + 1, the whole cache, and random ones), at
+    MiniCPM3's (40 heads, two head groups), with the planted faults
+    rejected at the first; then timed at each cache, every row valid,
+    beside its byte bound and the plain version."""
+    import dataclasses
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels.mla_decode import kernel, ref
+    from repro_torch.models import mla
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(31)
+    worst, rows_worst, n_cases = 0.0, 0.0, 0
+    launched = kernel.LAUNCHES["mla_decode"]
+    cases = [(DEEPSEEK, MLA_BATCH, L) for L in MLA_LENS]
+    cases.append(("minicpm3-4b", 2, 1032))
+    with torch.inference_mode():
+        for arch, B, L in cases:
+            cfg = configs.get_config(arch)
+            H, R = cfg.n_heads, cfg.mla.kv_lora_rank
+            Dr = cfg.mla.qk_rope_head_dim
+            eps, scale = cfg.norm_eps, mla._scale(cfg)
+            vg = torch.Generator().manual_seed(L)
+            valid = torch.randint(1, L + 1, (B,), generator=vg).tolist()
+            valid[:4] = [1, L, kernel.TILE, kernel.TILE + 1][:B]
+            args = _mla_inputs(B, L, H, R, Dr, valid, g)
+            got = kernel.mla_decode_fwd(*args, eps=eps, scale=scale)
+            want = ref.mla_decode_reference(*args, eps=eps, scale=scale)
+            torch.cuda.synchronize()
+            glob, row = _mla_errors(got, want)
+            log(f"[3d mla_decode] {arch} B {B} cache {L} H {H}: kernel vs "
+                f"plain {glob:.3e} (tol {TOL_MLA_DECODE}), rows {row:.3e} "
+                f"(tol {TOL_MLA_DECODE_ROW}); splits, head groups "
+                f"{kernel.layout(B, L, H, R, Dr, 132)}")
+            if not (glob <= TOL_MLA_DECODE and row <= TOL_MLA_DECODE_ROW):
+                raise AssertionError(f"mla_decode {arch} {L}: {glob}, {row}")
+            worst, rows_worst = max(worst, glob), max(rows_worst, row)
+            n_cases += 1
+            if L == MLA_LENS[0]:
+                for (name, _), lib in zip(MLA_FAULTS, fault_libs):
+                    fg, fr = _mla_errors(_mla_launch(lib, args, eps, scale),
+                                         want)
+                    log(f"[3d mla_decode]   planted fault, {name}: "
+                        f"{fg:.3e}, rows {fr:.3e}")
+                    if fg <= TOL_MLA_DECODE and fr <= TOL_MLA_DECODE_ROW:
+                        raise AssertionError(f"mla_decode fault {name} "
+                                             f"passed: {fg}, {fr}")
+            del args, got, want
+        cfg = configs.get_config(DEEPSEEK)
+        H, R = cfg.n_heads, cfg.mla.kv_lora_rank
+        Dr = cfg.mla.qk_rope_head_dim
+        eps, scale = cfg.norm_eps, mla._scale(cfg)
+        timing = {}
+        for L in MLA_LENS:
+            sets = [_mla_inputs(MLA_BATCH, L, H, R, Dr, [L] * MLA_BATCH, g)
+                    for _ in range(3)]
+            nbytes = (_nbytes(*sets[0][:4]) + sets[0][0].numel() * 2)
+            us = _mla_device_us([
+                lambda a=a: kernel.mla_decode_fwd(*a, eps=eps, scale=scale)
+                for a in sets])
+            plain = _mla_device_us([
+                lambda a=a: ref.mla_decode_reference(*a, eps=eps,
+                                                     scale=scale)
+                for a in sets], iters=6)
+            bound = nbytes / HBM_BYTES_PER_S * 1e6
+            timing[L] = {"us": us, "plain_us": plain, "bound_us": bound,
+                         "bytes": nbytes}
+            log(f"[3d mla_decode] B {MLA_BATCH} cache {L}, all valid: "
+                f"{us:.2f} us a call, bound {bound:.2f} us by bytes "
+                f"({nbytes / 1e6:.1f} MB, {bound / us:.1%} of it), plain "
+                f"{plain:.1f} us ({plain / us:.1f}x)")
+            if not us < plain:
+                raise AssertionError(f"mla_decode {us} us, plain {plain}")
+            del sets
+    torch.cuda.synchronize()
+    launches = kernel.LAUNCHES["mla_decode"] - launched
+    t = timing[1324]
+    log(f"[3d mla_decode] {n_cases} cases within tolerance (worst "
+        f"{worst:.3e}, rows {rows_worst:.3e}), {len(fault_libs)} planted "
+        f"faults rejected, {launches} launches; at the cell's P1196 "
+        f"({MLA_BATCH} x 1,324): {t['us']:.2f} us, "
+        f"{t['bound_us'] / t['us']:.1%} of the byte bound "
+        f"({time.perf_counter() - t0:.1f}s)")
+    torch.cuda.empty_cache()
+    return {"err": {"mla_decode": worst}, "launches": launches,
+            "timing": {"mla_decode": {
+                "ms": t["us"] / 1e3, "plain_ms": t["plain_us"] / 1e3,
+                "bound_ms": t["bound_us"] / 1e3, "bound_by": "bytes",
+                "library_ms": None, "by_cache": timing}}}
 
 
 # ---------------------------------------------------------------------------
@@ -2522,14 +2756,26 @@ def phase_deepseek() -> dict:
     import torch
     from repro_torch import configs
     from repro_torch.bench import lm_serve
+    from repro_torch.kernels.mla_decode import kernel as mla_kernel
     from repro_torch.models import lm, moe
     t0 = time.perf_counter()
     cfg = configs.get_config(DEEPSEEK)
     _reset_lm_launches()
+    routes0 = dict(lm.MLA_DECODE_COUNTS)
+    mla0 = mla_kernel.LAUNCHES["mla_decode"]
     out = lm_serve.run(device="cuda", cfg=cfg, rest_dtype=torch.bfloat16)
     kept = out.pop("kept")
     torch.cuda.synchronize()
     launches = _lm_launches()
+    # the absorbed decode's attention through the MLA decode kernel, a
+    # call a layer each time a step runs (a replayed graph runs none); the
+    # expanded paths do not count
+    mla_launches = mla_kernel.LAUNCHES["mla_decode"] - mla0
+    routes = {k: v - routes0[k] for k, v in lm.MLA_DECODE_COUNTS.items()}
+    if not (routes == {"kernel": mla_launches, "plain": 0}
+            and mla_launches and mla_launches % 27 == 0):
+        raise AssertionError(f"the absorbed decode's routes {routes}, "
+                             f"{mla_launches} kernel launches")
     if out["n_layers"] != 27 or out["d_model"] != 2048:
         raise AssertionError(f"{out['n_layers']} layers, d_model "
                              f"{out['d_model']}")
@@ -2546,8 +2792,8 @@ def phase_deepseek() -> dict:
         f"{ab['check']['rel_max_abs']:.3e}, greedy argmax agrees at "
         f"{ab['check']['argmax_agree']:.1%}; serving at capacity "
         f"{out['serve_capacity_factor']:.4g} (no choice can drop); launches "
-        f"in all {launches} "
-        f"({time.perf_counter() - t0:.1f}s)")
+        f"in all {launches}, the MLA decode kernel {mla_launches} (routes "
+        f"{routes}) ({time.perf_counter() - t0:.1f}s)")
     torch.cuda.empty_cache()
 
     # the same draws fp32 at rest: bf16 compute casts them at use, bit for
@@ -2595,12 +2841,17 @@ def phase_deepseek() -> dict:
         f"dropped ({dropped / kept_n:.1%}; random weights route unevenly, "
         f"aux {out['aux']:.4f}) ({time.perf_counter() - t1:.1f}s)")
 
-    # the whole path in fp32, where served and scored must agree
+    # the whole path in fp32, where served and scored must agree (fp32
+    # caches: the absorbed decode takes the plain chain)
     t1 = time.perf_counter()
+    routes0 = dict(lm.MLA_DECODE_COUNTS)
     out32 = lm_serve.run(device="cuda", cfg=dataclasses.replace(
         cfg, dtype="float32"), score_len=1024, batch=2, prompt_len=1024,
         decode_steps=8)
     torch.cuda.empty_cache()
+    routes32 = {k: v - routes0[k] for k, v in lm.MLA_DECODE_COUNTS.items()}
+    if routes32["kernel"] or not routes32["plain"]:
+        raise AssertionError(f"the fp32 absorbed decode's routes {routes32}")
     chk32 = {"expanded": out32["check"],
              "absorbed": out32["absorbed"]["check"]}
     log(f"[10 deepseek] fp32 at full width and depth (fp32 at rest, peak "
@@ -2615,7 +2866,8 @@ def phase_deepseek() -> dict:
             raise AssertionError(f"fp32 {name} served logits off by "
                                  f"{chk['rel_max_abs']}")
     return {"launches": launches, "out": out, "gaps": gaps,
-            "dropped": dropped / kept_n, "out_f32": out32}
+            "dropped": dropped / kept_n, "out_f32": out32,
+            "mla_launches": mla_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2764,13 +3016,20 @@ def _graph_batches(p, cfg, batches: int, g) -> dict:
     caches at its first step) and through the eager step at the host int
     on a copy of the same caches: the logits and the caches bit for bit,
     and the device memory the first step adds (the graph's pool, its
-    inputs, the logits) below the caches' bytes (it copies none).
+    inputs, the logits) below the caches' bytes (it copies none); each
+    capture records 27 calls of the MLA decode kernel and none of the
+    plain chain (54 where a shape's first capture runs the step once
+    before), and so does each eager step.
     Returns, by length, the last batch's ms a step of each path after the
     first and its first step's ms (the capture), host clock to a
     synchronise, and the bytes the graph added."""
     import torch
     from torch.utils import _pytree as pytree
     from repro_torch.models import lm
+
+    def routes(before):
+        return {k: v - before[k] for k, v in lm.MLA_DECODE_COUNTS.items()}
+
     ms = {}
     for L in GRAPH_LENS:
         P = L - 128
@@ -2784,6 +3043,7 @@ def _graph_batches(p, cfg, batches: int, g) -> dict:
             got, want = [], []
             torch.cuda.synchronize()
             held = torch.cuda.memory_allocated()
+            warm, r0 = len(lm._WARM), dict(lm.MLA_DECODE_COUNTS)
             t = [time.perf_counter()]
             for i in range(GRAPH_STEPS):
                 logits, caches = lm.decode_step(p, cfg, toks[:, i], P + i,
@@ -2795,11 +3055,19 @@ def _graph_batches(p, cfg, batches: int, g) -> dict:
                     added = torch.cuda.memory_allocated() - held
             torch.cuda.synchronize()
             t.append(time.perf_counter())
+            runs = 1 + len(lm._WARM) - warm
+            if routes(r0) != {"kernel": 27 * runs, "plain": 0}:
+                raise AssertionError(f"L {L} batch {b}: a capture's routes "
+                                     f"{routes(r0)} ({runs} runs)")
+            r0 = dict(lm.MLA_DECODE_COUNTS)
             for i in range(GRAPH_STEPS):
                 logits, ref = lm._step(p, cfg, toks[:, i], P + i, ref)
                 want.append(logits)
             torch.cuda.synchronize()
             t.append(time.perf_counter())
+            if routes(r0) != {"kernel": 27 * GRAPH_STEPS, "plain": 0}:
+                raise AssertionError(f"L {L} batch {b}: the eager steps' "
+                                     f"routes {routes(r0)}")
             ms[L] = {"first": (t[1] - t[0]) * 1e3,
                      "graph": (t[2] - t[1]) * 1e3 / (GRAPH_STEPS - 1),
                      "eager": (t[3] - t[2]) * 1e3 / GRAPH_STEPS,
@@ -2832,15 +3100,18 @@ def phase_decode_graph() -> dict:
     two batches of each cache length of GRAPH_LENS through the decode
     graphs, each step bit-equal to the eager step in logits and caches;
     one capture a batch, one replay a step, no graph left once a batch's
-    caches go. Then the weights dropped: the device gets back their
-    bytes. Then a second set of weights, one batch a length."""
+    caches go; 27 MLA decode kernel calls and no plain chain a capture.
+    Then the weights dropped: the device gets back their bytes. Then a
+    second set of weights, one batch a length."""
     import dataclasses
     import gc
     import torch
     from repro_torch import configs
     from repro_torch.bench import lm_serve
+    from repro_torch.kernels.mla_decode import kernel as mla_kernel
     from repro_torch.models import lm
     t0 = time.perf_counter()
+    mla0 = mla_kernel.LAUNCHES["mla_decode"]
     cfg = dataclasses.replace(lm_serve.serving_config(
         configs.get_config(DEEPSEEK)), mla_absorb=True)
     lm.clear_step_graphs()
@@ -2889,10 +3160,13 @@ def phase_decode_graph() -> dict:
                   f"{v['eager']:.2f}, the graph's memory beside the caches "
                   f"{v['added'] / 2**20:.0f} MiB" for L, v in ms.items())
         + f"; weights dropped: {freed / 2**30:.2f} GiB freed (weights "
-        f"{nbytes / 2**30:.2f}); peak {peak / 2**30:.2f} GiB "
+        f"{nbytes / 2**30:.2f}); peak {peak / 2**30:.2f} GiB; MLA decode "
+        f"kernel launches {mla_kernel.LAUNCHES['mla_decode'] - mla0}, 27 a "
+        f"capture or step, none of the plain chain "
         f"({time.perf_counter() - t0:.1f}s)")
     return {"ms": ms, "counts": [first, second], "freed": freed,
-            "peak": peak}
+            "peak": peak,
+            "mla_launches": mla_kernel.LAUNCHES["mla_decode"] - mla0}
 
 
 # ---------------------------------------------------------------------------
@@ -2901,7 +3175,8 @@ def phase_decode_graph() -> dict:
 # (arch, layers kept or None for all, flash launches per forward): one card
 # holds neither Qwen2-72B (145 GB in bf16) nor DBRX-132B (263 GB), so they
 # are cut in depth; MLA (MiniCPM3) and a prefix (PaliGemma) run the plain
-# attention, as in the reference
+# attention, as in the reference (MiniCPM3's absorbed decode steps through
+# the MLA decode kernel)
 PHASE12 = (
     ("minicpm3-4b", None, 0),
     ("paligemma-3b", None, 0),
@@ -2924,8 +3199,10 @@ def phase_configs() -> dict:
     import torch
     from repro_torch import configs
     from repro_torch.bench import lm_serve
+    from repro_torch.kernels.mla_decode import kernel as mla_kernel
     t0 = time.perf_counter()
     _reset_lm_launches()
+    mla0 = mla_kernel.LAUNCHES["mla_decode"]
     outs = {}
     for arch, keep, flash in PHASE12:
         full = configs.get_config(arch)
@@ -2965,20 +3242,25 @@ def phase_configs() -> dict:
         outs[arch] = out
     torch.cuda.synchronize()
     launches = _lm_launches()
-    log(f"[12 configs] {len(outs)} configs, launches in all {launches} "
+    mla_launches = mla_kernel.LAUNCHES["mla_decode"] - mla0
+    log(f"[12 configs] {len(outs)} configs, launches in all {launches}, the "
+        f"MLA decode kernel {mla_launches} (MiniCPM3's absorbed decode) "
         f"({time.perf_counter() - t0:.1f}s)")
-    return {"launches": launches, "outs": outs}
+    if not mla_launches:
+        raise AssertionError("MiniCPM3's absorbed decode took no kernel")
+    return {"launches": launches, "outs": outs, "mla_launches": mla_launches}
 
 
 # ---------------------------------------------------------------------------
 # phase 3 (also): the LM kernels refuse inputs that require grad
 # ---------------------------------------------------------------------------
 def phase_grad_refusal() -> None:
-    """Each of the three LM wrappers raises on a CUDA input that requires
+    """Each of the four LM wrappers raises on a CUDA input that requires
     grad while autograd records (none has a backward), and launches as
     before under `inference_mode` on the same tensors' values."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.mla_decode import kernel as mla
     from repro_torch.kernels.rg_lru import kernel as rg
     from repro_torch.kernels.ssd_scan import kernel as ssd
     g = torch.Generator(device="cuda").manual_seed(400)
@@ -2991,7 +3273,15 @@ def phase_grad_refusal() -> None:
     a, b = rand(1, 256, 512), rand(1, 256, 512)
     x, dt, A = rand(1, 256, 4, 64), rand(1, 256, 4), rand(4, lo="neg")
     Bg = rand(1, 256, 1, 128)
-    calls = (("flash_attention", fa.LAUNCHES,
+    bf = torch.bfloat16
+    lat, cache = rand(2, 1, 16, 512).to(bf), rand(2, 64, 512).to(bf)
+    rope, krope = rand(2, 1, 16, 64).to(bf), rand(2, 64, 64).to(bf)
+    valid = torch.tensor([1, 64], dtype=torch.int32, device="cuda")
+    calls = (("mla_decode", mla.LAUNCHES,
+              lambda w: mla.mla_decode_fwd(w, rope, cache, krope,
+                                           rand(512), valid - 1, valid,
+                                           eps=1e-6, scale=0.07), lat),
+             ("flash_attention", fa.LAUNCHES,
               lambda w: fa.flash_attention_fwd(w, q, q), q),
              ("rg_lru", rg.LAUNCHES, lambda w: rg.rg_lru_fwd(w, b), a),
              ("ssd_scan", ssd.LAUNCHES,
@@ -3695,6 +3985,8 @@ KERNELS = (  # name, source, TPU kernel replaced, path
      "src/repro/kernels/rg_lru/kernel.py:48", "lm"),
     ("ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
      "src/repro/kernels/ssd_scan/kernel.py:65", "mamba"),
+    ("mla_decode", "src/repro_torch/kernels/mla_decode/csrc/mla_decode.cu",
+     "none (XLA runs repro/models/mla.py's absorbed attention)", "mla"),
 )
 
 
@@ -3705,6 +3997,7 @@ def main() -> int:
     kern = phase_kernels()
     lm_kern = phase_lm_kernels(built["rg_faults"])
     ssd_kern = phase_ssd_kernels(built["ssd_faults"])
+    mla_kern = phase_mla_decode(built["mla_faults"])
     phase_grad_refusal()
     das_path = phase_main()
     phase_cross(das_path["out"]["trees"])
@@ -3717,11 +4010,12 @@ def main() -> int:
     phase_mamba_cross()
     ds_path = phase_deepseek()
     phase_deepseek_cross()
-    phase_decode_graph()
+    graph_path = phase_decode_graph()
     cfg_path = phase_configs()
     train_path = phase_train(smi, built["ssd_faults"])
     shard_path = phase_shard(smi)
-    checked = {"das": kern, "lm": lm_kern, "mamba": ssd_kern}
+    checked = {"das": kern, "lm": lm_kern, "mamba": ssd_kern,
+               "mla": mla_kern}
     # the DAS kernels' launches over its four paths: summary40 (phase
     # 4), the fault path (5b), the benchmark's sections (5c) and the
     # campaign on the card (5d)
@@ -3739,8 +4033,12 @@ def main() -> int:
     mamba_launches = {k: mamba_path["launches"][k]
                       + train_path["launches"][k]
                       for k in mamba_path["launches"]}
+    # the MLA decode kernel over DeepSeek's absorbed decode (phase 10), its
+    # decode graphs (10b) and MiniCPM3's absorbed decode (phase 12)
+    mla_launches = {"mla_decode": ds_path["mla_launches"]
+                    + graph_path["mla_launches"] + cfg_path["mla_launches"]}
     launched = {"das": das_launches, "lm": lm_launches,
-                "mamba": mamba_launches}
+                "mamba": mamba_launches, "mla": mla_launches}
     rows = []
     for name, source, replaces, path in KERNELS:
         t = checked[path]["timing"][name]

@@ -25,7 +25,8 @@ device's idle share, kernel launches, and device time by kernel group
 and reduction kernels), by model region (`moe`: each MoE MLP, its GEMMs
 apart from its dispatch, i.e. the router's softmax, the sort, gathers and
 scatters; `mla`: each MLA attention, its GEMMs apart from the rest:
-scores, mask, softmax, casts) and by the kernels that take most of it.
+scores, mask, softmax, casts, or the MLA decode kernel) and by the
+kernels that take most of it.
 Wall time is taken around the traced region, which ends in a
 synchronize, so it includes the profiler's own cost.
 """
@@ -54,6 +55,7 @@ GROUPS = (  # first match wins
     ("flash_attention", ("flash_fwd",)),  # both dtypes' kernels
     ("rg_lru", ("rg_lru_kernel", "rg_lru_tma_kernel")),  # both routes
     ("ssd_scan", ("ssd_scan",)),          # both dtypes' kernels
+    ("mla_decode", ("mla_decode",)),      # the absorbed decode's attention
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
     ("copy_cast", ("copy", "cast", "convert")),
 )

@@ -307,6 +307,9 @@ def _step(p, cfg, token, pos, caches, kv_valid=None, positions=None):
 # transients, since they replay one at a time. `STEP_GRAPH_COUNTS`
 # counts, for the process, what the calls did.
 STEP_GRAPH_COUNTS = {"captures": 0, "replays": 0, "eager_steps": 0}
+# the absorbed MLA attention's calls by route ("kernel": the MLA decode
+# kernel, "plain": the tensor chain), as a step runs or is recorded
+MLA_DECODE_COUNTS = mla.MLA_DECODE_COUNTS
 _STEP_GRAPHS: Dict[tuple, "_StepGraph"] = {}
 _SIDE: Dict[torch.device, tuple] = {}    # a device's side stream and pool
 _WARM: set = set()          # the step shapes run once before a capture

@@ -10,7 +10,12 @@ The decode cache stores only (c_kv, k_rope), updated in place like the
 port's `KVCache`. `cfg.mla_absorb` attends over the cache in the latent
 space instead (W_uk folded into the query, W_uv into the output). As in
 the reference, MLA runs the plain attention (fp32 scores, additive -inf
-mask) and never calls the flash kernel.
+mask) and never calls the flash kernel. The absorbed attention of one
+query position over a bf16 cache, with autograd off, on CUDA (a decode
+step), runs as the MLA decode kernel (`kernels/mla_decode`), which reads
+the cache once with its `rms_norm` fused; everything else runs the plain
+chain (`kernels/mla_decode/ref.py`). `MLA_DECODE_COUNTS` counts the
+calls of each route as they run or are recorded into a CUDA graph.
 
 Mixed dtypes promote as in JAX (an fp32 cache under a bf16 model gives an
 fp32 attention output); torch's einsum takes one dtype, so the operands
@@ -18,13 +23,22 @@ are brought to the promoted one first.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels.mla_decode import ops as decode_ops
+from repro_torch.kernels.mla_decode import ref as decode_ref
 from repro_torch.models import modules as nn
 from repro_torch.parallel import sharding as shd
+
+#: the absorbed attention's calls by route, counted as they run or are
+#: recorded (a replayed CUDA graph runs none)
+MLA_DECODE_COUNTS = {"kernel": 0, "plain": 0}
+#: the device type the MLA decode kernel runs on
+_KERNEL_DEVICE = "cuda"
 
 
 class MLACache(NamedTuple):
@@ -85,21 +99,9 @@ def _mla_latents(p, cfg, x, positions):
     return c_kv, k_rope
 
 
-def _scores(cfg, s_nope, q_rope, k_rope, q_pos, kv_pos):
-    """fp32 (s_nope + s_rope) * scale, -inf where masked; in place in
-    s_nope (the same values as the reference's additive mask on finite
-    scores, without three more [B, H, Sq, Skv] buffers), out of place
-    while autograd records (s_nope is a product's output, which the
-    "dots" remat policy keeps for the backward)."""
+def _scale(cfg) -> float:
     m = cfg.mla
-    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
-    s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.float(), k_rope.float())
-    ok = (kv_pos[:, None, :] <= q_pos[:, :, None]) & (kv_pos[:, None, :] >= 0)
-    if nn.records_grad(s_nope, s_rope):
-        return ((s_nope + s_rope) * scale).masked_fill(~ok[:, None],
-                                                       float("-inf"))
-    scores = s_nope.add_(s_rope).mul_(scale)
-    return scores.masked_fill_(~ok[:, None], float("-inf"))
+    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
 
 
 def _local(fn, heads_in, rows_in):
@@ -125,7 +127,8 @@ def _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, q_pos, kv_pos):
     def core(q_nope, q_rope, k_nope, v, k_rope, q_pos, kv_pos):
         s_nope = torch.einsum("bqhd,bkhd->bhqk", q_nope.float(),
                               k_nope.float())
-        scores = _scores(cfg, s_nope, q_rope, k_rope, q_pos, kv_pos)
+        scores = decode_ref.scores(s_nope, q_rope, k_rope, q_pos, kv_pos,
+                                   _scale(cfg))
         w = torch.softmax(scores, dim=-1).to(v.dtype)
         return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
@@ -133,23 +136,45 @@ def _mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope, q_pos, kv_pos):
     return nn.linear(shd.merge_heads(out, out.shape[2]), p["wo"])
 
 
+def _kernel_route(q_lat, q_rope, c_kv, k_rope) -> bool:
+    """Whether the absorbed attention runs as the MLA decode kernel: one
+    query position, bf16 query and cache, no autograd recording, on
+    CUDA."""
+    ts = (q_lat, q_rope, c_kv, k_rope)
+    return (q_lat.shape[1] == 1
+            and all(t.dtype == torch.bfloat16 for t in ts)
+            and not nn.records_grad(*ts)
+            and all(t.device.type == _KERNEL_DEVICE for t in ts))
+
+
 def _mla_attend_absorbed(p, cfg, q_nope, q_rope, c_kv, k_rope, q_pos,
-                         kv_pos):
+                         kv_valid):
     """Weight-absorbed attention in the compressed latent space:
         score = (W_uk^T q_nope)^T c_kv + q_rope^T k_rope
         out   = W_uv^T (softmax(score) c_kv)
-    One read of (c_kv, k_rope) a step, no per-step K/V expansion."""
-    ckn = nn.rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)      # [B,Skv,R]
+    One read of (c_kv, k_rope) a step, no per-step K/V expansion; rows
+    past `kv_valid` [B] and past each query's position are masked."""
     q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope,
                          p["w_uk"].to(q_nope.dtype))         # [B,Sq,H,R]
+    if _kernel_route(q_lat, q_rope, c_kv, k_rope):
+        MLA_DECODE_COUNTS["kernel"] += 1
+        norm = p["kv_norm"]
+        if shd.is_dtensor(norm):
+            norm = norm.full_tensor()
 
-    def core(q_lat, q_rope, ckn, k_rope, q_pos, kv_pos):
-        s_nope = torch.einsum("bqhr,bkr->bhqk", q_lat.float(), ckn.float())
-        scores = _scores(cfg, s_nope, q_rope, k_rope, q_pos, kv_pos)
-        w = torch.softmax(scores, dim=-1).to(ckn.dtype)
-        return torch.einsum("bhqk,bkr->bqhr", w, ckn)
+        def core(q_lat, q_rope, c_kv, k_rope, q_pos, kv_valid):
+            return decode_ops.mla_decode(
+                q_lat, q_rope, c_kv, k_rope, norm, q_pos[:, 0], kv_valid,
+                eps=cfg.norm_eps, scale=_scale(cfg))
 
-    o_lat = _local(core, (q_lat, q_rope), (ckn, k_rope, q_pos, kv_pos))
+        o_lat = _local(core, (q_lat, q_rope), (c_kv, k_rope, q_pos, kv_valid))
+    else:
+        MLA_DECODE_COUNTS["plain"] += 1
+        ckn = nn.rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)  # [B,Skv,R]
+        kv_pos = decode_ref.kv_positions(kv_valid, c_kv.shape[1])
+        o_lat = _local(functools.partial(decode_ref.latent_attention,
+                                         scale=_scale(cfg)),
+                       (q_lat, q_rope), (ckn, k_rope, q_pos, kv_pos))
     out = torch.einsum("bqhr,rhd->bqhd", o_lat, p["w_uv"].to(o_lat.dtype))
     return nn.linear(shd.merge_heads(out, out.shape[2]), p["wo"])
 
@@ -182,14 +207,16 @@ def mla_apply(p, cfg, x, positions, cache: Optional[MLACache] = None,
                            device=x.device)
     if kv_valid is None:
         kv_valid = valid
-    kv_pos = torch.arange(S_max, dtype=torch.int32,
-                          device=x.device)[None].expand(B, S_max)
-    kv_pos = torch.where(kv_pos < kv_valid[:, None], kv_pos, -1)
-    attend = _mla_attend_absorbed if cfg.mla_absorb else _mla_attend
     # the cache splits its sequence over "model" under a sharding policy;
     # the products over it take whole sequences (an all-gather of the
     # small latent cache a step; a no-op otherwise)
     whole = ("batch", None, None)
-    y = attend(p, cfg, q_nope, q_rope, shd.constrain(cache.c_kv, whole),
-               shd.constrain(cache.k_rope, whole), positions, kv_pos)
+    cached = (shd.constrain(cache.c_kv, whole),
+              shd.constrain(cache.k_rope, whole))
+    if cfg.mla_absorb:
+        y = _mla_attend_absorbed(p, cfg, q_nope, q_rope, *cached, positions,
+                                 kv_valid)
+    else:
+        y = _mla_attend(p, cfg, q_nope, q_rope, *cached, positions,
+                        decode_ref.kv_positions(kv_valid, S_max))
     return y, cache
